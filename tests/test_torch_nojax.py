@@ -1,0 +1,56 @@
+"""The port's CPU main path runs with JAX blocked.
+
+A subprocess installs a meta-path finder that refuses every ``jax`` and
+``jaxlib`` import, then runs the port's CLI: index from FASTA/GTF, save,
+load, and ``align --device cpu`` to SAM.  No jax module may load, and
+the SAM bytes must equal the reference CLI's in this (JAX) process."""
+
+import os
+import subprocess
+import sys
+
+from fixtures import write_fixture
+from thermite_tpu.cli import main as ref_main
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CHILD = r"""
+import importlib.abc, sys
+
+class _BlockJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ModuleNotFoundError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, _BlockJax())
+from thermite_tpu_torch.cli import main
+
+ref, gtf, fq, idx, out = sys.argv[1:6]
+assert main(["index", ref, gtf, "-o", idx]) == 0
+assert main(["align", idx, fq, "-o", out, "-a", "-k", "3",
+             "--min-aln-score", "0", "--intron-mode", "--device", "cpu"]) == 0
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+assert not loaded, loaded
+print("NOJAX-OK")
+"""
+
+
+def test_port_cli_runs_without_jax(tmp_path):
+    ref, gtf, fq = write_fixture(tmp_path)
+    port_idx, port_sam = str(tmp_path / "p.tai.npz"), str(tmp_path / "p.sam")
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run(
+        [sys.executable, "-c", CHILD, ref, gtf, fq, port_idx, port_sam],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT,
+    )
+    assert r.returncode == 0 and "NOJAX-OK" in r.stdout, r.stderr[-3000:]
+
+    ref_idx, ref_sam = str(tmp_path / "r.tai.npz"), str(tmp_path / "r.sam")
+    assert ref_main(["index", ref, gtf, "-o", ref_idx]) == 0
+    assert ref_main(["align", ref_idx, fq, "-o", ref_sam, "-a", "-k", "3",
+                     "--min-aln-score", "0", "--intron-mode"]) == 0
+    with open(port_sam, "rb") as a, open(ref_sam, "rb") as b:
+        got, want = a.read(), b.read()
+    assert got == want and b"\tAS:i:" in got

@@ -1,0 +1,143 @@
+// Scalar pieces of the SWG stream kernel (swg_stream.cu) that run the
+// same on the host and the device: meta unpacking, the nibble gather,
+// the direction-plane layout, the per-problem traceback walk with its
+// 2-bit code packing, and the header packing.  Compiled by nvcc for the
+// kernel and by g++ for the host test harness (swg_stream_host.cpp), so
+// this logic is tested on a machine without a GPU.
+#pragma once
+
+#include <stdint.h>
+
+#ifndef __CUDACC__
+#define __host__
+#define __device__
+#define __forceinline__ inline
+#endif
+
+namespace swg {
+
+// Unit scoring of the reference (thermite_tpu/constants.py).
+constexpr int32_t MATCH = 1;
+constexpr int32_t MISMATCH = -1;
+constexpr int32_t GAP_OPEN = -1;
+constexpr int32_t GAP_EXTEND = -1;
+constexpr int32_t MIN_SCORE = -(1 << 30);
+// exclusive prefix-max identity, below every reachable score
+constexpr int32_t PAD = (int32_t)(-2147483647 - 1) + (1 << 21);
+
+constexpr int DIR_MATCH = 0;
+constexpr int DIR_SUBST = 1;
+constexpr int DIR_DEL = 2;
+constexpr int DIR_INS = 3;
+
+// zero bytes padding both ends of the nibble-packed text and reads
+constexpr int WPAD = 512;
+
+struct Meta {
+  int64_t y_anchor;  // nibble position of y[0] in the text words
+  int64_t x_anchor;  // nibble position of x[0] in the read words
+  int y_dir, x_dir;  // +1 forward, -1 reversed (window ends at anchor)
+  int ylen, xlen, band, xdrop;
+};
+
+// One problem row, 9 columns [y_word, y_sub, y_dir, ylen, x_base,
+// x_dir, xlen, band, x_drop] or the 4-column packed upload form
+// (layout.pack_meta_host).
+__host__ __device__ __forceinline__ Meta unpack_meta(const int32_t* r,
+                                                     int cols) {
+  Meta m;
+  if (cols == 9) {
+    m.y_anchor = 8 * (int64_t)r[0] + r[1];
+    m.y_dir = r[2];
+    m.ylen = r[3];
+    m.x_anchor = (int64_t)r[4] + WPAD;
+    m.x_dir = r[5];
+    m.xlen = r[6];
+    m.band = r[7];
+    m.xdrop = r[8];
+  } else {
+    const uint32_t c2 = (uint32_t)r[2], c3 = (uint32_t)r[3];
+    m.y_anchor = 8 * (int64_t)r[0] + (int64_t)(c3 & 7u);
+    m.x_anchor = (int64_t)r[1] + WPAD;
+    m.ylen = (int)(c2 & 0xFFFFu);
+    m.xlen = (int)((c2 >> 16) & 0xFFFFu);
+    m.y_dir = 1 - 2 * (int)((c3 >> 3) & 1u);
+    m.x_dir = 1 - 2 * (int)((c3 >> 4) & 1u);
+    m.band = (int)((c3 >> 5) & 0x3FFu);
+    m.xdrop = (int)((c3 >> 15) & 0xFFFu);
+  }
+  return m;
+}
+
+// 4-bit code at nibble position pos (floor division; the word index
+// clamps to [0, lw), as the reference's gather does).
+__host__ __device__ __forceinline__ int nib_at(const int32_t* words,
+                                               int64_t lw, int64_t pos) {
+  int64_t w = pos >= 0 ? pos / 8 : -((-pos + 7) / 8);
+  const int sub = (int)(pos - 8 * w);
+  w = w < 0 ? 0 : (w >= lw ? lw - 1 : w);
+  return (int)(((uint32_t)words[w] >> (4 * sub)) & 0xFu);
+}
+
+// Direction planes of one problem: column j holds 2*SLOTS words; word
+// 2k+b has bit `lane` set when bit b of the direction at band slot
+// lane*SLOTS + k is set (one warp ballot per word).
+template <int SLOTS>
+__host__ __device__ __forceinline__ int dir_at(const uint32_t* planes, int j,
+                                               int slot) {
+  const int lane = slot / SLOTS, k = slot % SLOTS;
+  const uint32_t* col = planes + (int64_t)j * 2 * SLOTS;
+  return (int)(((col[2 * k] >> lane) & 1u) |
+               (((col[2 * k + 1] >> lane) & 1u) << 1));
+}
+
+// Code d of walk step c into the packed stream: word c/16, bits
+// 2*(c%16), unsigned shifts (the reference's int32 packing wraps at
+// c%16 >= 14 to the same bits).  Steps past the pw words are dropped.
+__host__ __device__ __forceinline__ void put_code(uint32_t* words, int pw,
+                                                  int c, int d) {
+  if (c < 16 * pw) words[c >> 4] |= (uint32_t)d << (2 * (c & 15));
+}
+
+struct WalkEnd {
+  int steps;
+  bool bad;
+};
+
+// Traceback from the best cell (mi, mj).  A step reads the direction at
+// slot clip(i - row0, 0, 2b) of column j (row0 = max(j - b, 0)), emits
+// its code, and moves: M/S consume x and y, I consumes x, D consumes y.
+// `words` (pw zeroed words) receives the codes.  A walk that has not
+// reached the origin after smax + 1 steps is stopped and flagged bad.
+template <int SLOTS>
+__host__ __device__ inline WalkEnd walk(const uint32_t* planes, int mi, int mj,
+                                        int band, int smax, uint32_t* words,
+                                        int pw) {
+  int i = mi, j = mj, c = 0;
+  while ((i > 0 || j > 0) && c <= smax) {
+    const int row0 = j > band ? j - band : 0;
+    int bi = i - row0;
+    bi = bi < 0 ? 0 : (bi > 2 * band ? 2 * band : bi);
+    const int d = dir_at<SLOTS>(planes, j, bi);
+    put_code(words, pw, c, d);
+    if (d <= DIR_SUBST || d == DIR_INS) --i;
+    if (d <= DIR_SUBST || d == DIR_DEL) --j;
+    ++c;
+  }
+  return WalkEnd{c, i > 0 || j > 0 || c > smax};
+}
+
+// nsteps field: the step count, -1 for a bad walk, -2-c when the
+// band-exactness certificate failed.
+__host__ __device__ __forceinline__ int nsteps_code(WalkEnd w, bool cert) {
+  return w.bad ? -1 : (cert ? w.steps : -2 - w.steps);
+}
+
+// Header of one problem: int16 halves [score | max_i, max_j | nsteps].
+__host__ __device__ __forceinline__ void pack_hdr(int ms, int mi, int mj,
+                                                  int ns, int32_t* out) {
+  out[0] = (int32_t)(((uint32_t)ms & 0xFFFFu) | ((uint32_t)mi << 16));
+  out[1] = (int32_t)(((uint32_t)mj & 0xFFFFu) | ((uint32_t)ns << 16));
+}
+
+}  // namespace swg

@@ -3,22 +3,39 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --kernels-only  # phases 1, 2, 2b and 2c
 
 Phases, each printed with its own timing; any failure exits non-zero
 before the result lines are printed:
 
-1. require CUDA; print the card's name and power limit; build the CUDA
-   kernel (nvcc, sm_90a) and the C++ host engine (g++).
-2. swg_stream kernel == swg_stream_plain (bit-exact, tolerance 0) on the
-   same CUDA inputs: fuzz shapes for both band classes and meta forms,
-   the narrow-band certificate shapes, and one full main-path chunk
-   shape (65536 rows, XMAX 96, YMAX 128, band <= 15, SMAX 208), with
-   both times.
+1. require CUDA; print the card's name and power limit; build the three
+   CUDA kernels (one nvcc each, in parallel, sm_90a) and the C++ host
+   engine (g++); print the registers and spills of every kernel.
+2. swg_stream's packed kernel (bands <= 31) == swg_stream_plain
+   (bit-exact, tolerance 0) on the same CUDA inputs: fuzz shapes for both
+   band classes and meta forms, the narrow-band certificate shapes, and
+   one full main-path chunk shape (65536 rows, XMAX 96, YMAX 128,
+   band <= 15, SMAX 208), with both times.
+2b. the general-band stream kernel (swg_stream_wide) == swg_stream_plain,
+   bit-exact: fuzz shapes at bands <= 63, <= 127 and <= 255 in both meta
+   forms (windows up to 512 for the widest), bands above XMAX (up to
+   1023 slots), and the full-band chunk shape (65536 rows, XMAX 96,
+   YMAX 160, band 60, SMAX 256), with both times.
+2c. the forward-scores kernel (swg_forward) == swg_forward_plain,
+   bit-exact, on the same kinds of shapes, with both times at the
+   full-band chunk shape.
 3. syn45 in memory: a 45 Mbp synthetic spliced chromosome, indexed, and
    49152 truth reads through BatchAligner(device="cuda")
-   .align_batch_emit(fmt_bam=True); asserts the kernel ran once per
-   chunk or more and that more than 90% of reads mapped.
+   .align_batch_emit(fmt_bam=True); asserts the packed kernel ran once
+   per chunk or more and that more than 90% of reads mapped.
+3b. the same reads at full band (narrow_band 0): the BAM bytes equal
+   phase 3's, the general-band kernel ran once per chunk or more and the
+   packed kernel never; reads/s over 5 runs and the stage split.
+3c. the path without the C++ engine (use_native=False) on the first 4096
+   reads: the BAM bytes equal the C++ engine's on those reads; the
+   forward-scores and general-band kernels each ran once per chunk or
+   more.
 4. C++ referee: every row of one syn45 chunk that the kernel certified
    equals the full-band scalar SWG of the C++ engine (native.patch_rows).
 5. oracle referee: the SAM records of the first 200 reads equal the
@@ -32,6 +49,7 @@ naming the device.  Nothing of JAX is imported.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -45,6 +63,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SYN_BP = 45_000_000
 N_READS = 49152
 N_ORACLE = 200
+N_NO_NATIVE = 4096
 
 
 def log(msg: str) -> None:
@@ -84,28 +103,32 @@ def _text_reads(rng, text_len, n_reads, rpad, read_len, indel_every=0):
     return text, reads, src
 
 
-def fuzz_problems(seed, n, band_max):
-    """The reference's packed-kernel fuzz shapes (XMAX 64, YMAX 96):
-    random windows in both directions, some running into the padding."""
+def fuzz_problems(seed, n, band_max, XMAX=64, YMAX=96, band_min=0):
+    """The reference's kernel fuzz shapes (by default XMAX 64, YMAX 96):
+    random windows in both directions, some running into the padding,
+    bands drawn from [band_min, band_max]; reads are RPAD = XMAX wide."""
     from thermite_tpu_torch.ops.layout import meta_row
 
     rng = np.random.default_rng(seed)
-    RPAD, XMAX, YMAX = 64, 64, 96
-    text, reads, _ = _text_reads(rng, 5000, 32, RPAD, RPAD)
+    RPAD = XMAX
+    text, reads, src = _text_reads(rng, 5000 + 2 * YMAX, 32, RPAD, RPAD)
     rows = []
     for _ in range(n):
-        band = int(rng.integers(0, band_max + 1))
+        band = int(rng.integers(band_min, band_max + 1))
         xd = int(rng.integers(1, 40))
         q = int(rng.integers(0, RPAD - 1))
         xdir = 1 if rng.random() < 0.5 else -1
         xlen = int(rng.integers(1, XMAX + 1))
         xlen = min(xlen, RPAD - q) if xdir == 1 else min(xlen, q + 1)
-        p = int(rng.integers(0, len(text)))
-        ydir = 1 if rng.random() < 0.5 else -1
+        ri = int(rng.integers(0, len(reads)))
+        if rng.random() < 0.5:  # y where the read came from: long walks
+            p, ydir = int(src[ri]) + q + int(rng.integers(-3, 4)), xdir
+        else:
+            p = int(rng.integers(0, len(text)))
+            ydir = 1 if rng.random() < 0.5 else -1
         ylen = int(rng.integers(1, YMAX + 1))
         if rng.random() < 0.8:
             ylen = max(min(ylen, len(text) - p if ydir == 1 else p + 1), 1)
-        ri = int(rng.integers(0, len(reads)))
         rows.append(meta_row(p, ydir, ylen, ri * RPAD + q, xdir, xlen, band, xd))
     return text, reads, np.asarray(rows, np.int32), XMAX, YMAX
 
@@ -113,7 +136,8 @@ def fuzz_problems(seed, n, band_max):
 def chunk_problems(seed, n, wide=60, narrow=15):
     """Main-path chunk shape: 90 bp flanks built at band `wide` (some
     reads carry a 25-base deletion) and narrowed to `narrow`, as
-    BatchAligner._narrow_meta submits them."""
+    BatchAligner._narrow_meta submits them (narrow == wide: the full-band
+    path's chunk)."""
     from thermite_tpu_torch.ops.layout import meta_row
 
     rng = np.random.default_rng(seed)
@@ -133,7 +157,7 @@ def chunk_problems(seed, n, wide=60, narrow=15):
                            wide, wide)
     np.minimum(meta[:, 7], narrow, out=meta[:, 7])
     np.minimum(meta[:, 3], meta[:, 6] + meta[:, 7] + 1, out=meta[:, 3])
-    return text, reads, meta, 96, 128
+    return text, reads, meta, 96, 32 * ((90 + narrow + 1 + 31) // 32)
 
 
 def _to_dev(text, reads, meta, dev):
@@ -146,67 +170,155 @@ def _to_dev(text, reads, meta, dev):
     return words, rnib, torch.from_numpy(np.ascontiguousarray(meta)).to(dev)
 
 
-def compare_kernel(args, reps=0):
-    """The kernel and its plain version on the same CUDA inputs ->
-    (rows that differ, max_abs_err, kernel ms or None, plain ms, nsteps)."""
+def compare_kernel(args, reps, kernel, plain=None):
+    """A kernel's wrapper and its plain version on the same CUDA inputs
+    -> (rows that differ, max_abs_err, kernel ms or None, plain ms, the
+    kernel's output rows on the host).  Stream outputs (hdr, streams)
+    are compared as one row of int32 words."""
     import torch
 
-    from thermite_tpu_torch.ops.swg_stream import swg_stream, swg_stream_plain
+    from thermite_tpu_torch.ops.swg_stream import swg_stream_plain
 
-    hk, sk = swg_stream(*args)
+    plain = plain or swg_stream_plain
+
+    def rows(out):
+        return torch.cat(out, 1) if isinstance(out, tuple) else out
+
+    got = rows(kernel(*args))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    hp, sp = swg_stream_plain(*args)
+    want = rows(plain(*args))
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    err = max(
-        int((hk.to(torch.int64) - hp.to(torch.int64)).abs().max()),
-        int((sk.to(torch.int64) - sp.to(torch.int64)).abs().max()),
-    )
-    nbad = int(((hk != hp).any(1) | (sk != sp).any(1)).sum())
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+        if got.numel() else 0
+    nbad = int((got != want).any(1).sum())
     ms = None
     if reps:
         start, stop = torch.cuda.Event(True), torch.cuda.Event(True)
         start.record()
         for _ in range(reps):
-            swg_stream(*args)
+            kernel(*args)
         stop.record()
         torch.cuda.synchronize()
         ms = start.elapsed_time(stop) / reps
-    return nbad, err, ms, plain_ms, hk.view(torch.int16)[:, 3].cpu().numpy()
+    return nbad, err, ms, plain_ms, got.cpu().numpy()
+
+
+def _nsteps(rows: np.ndarray) -> np.ndarray:
+    """nsteps of split stream rows (int16 halves in the first 2 words)."""
+    return np.ascontiguousarray(rows[:, :2]).view(np.int16)[:, 3]
+
+
+def run_cases(dev, cases, kernel, plain=None, stream=True):
+    """Each case through compare_kernel (the 65536-row ones timed), the
+    kernel's wrapper given the case's band bound as the batch pipeline
+    gives it (no device read per launch); -> (worst max_abs_err, (ms,
+    plain_ms) of the last timed case)."""
+    import torch
+
+    from thermite_tpu_torch.ops.swg_stream import meta9
+
+    worst, timing = 0, (None, None)
+    for name, t, r, m, xm, ym, extra in cases:
+        words, rnib, mt = _to_dev(t, r, m, dev)
+        bmax = int(meta9(torch.from_numpy(np.ascontiguousarray(m)))[:, 7].max())
+        nbad, err, ms, plain_ms, got = compare_kernel(
+            (words, words.shape[0], rnib, mt, xm, ym, *extra),
+            reps=20 if len(m) == 65536 else 0,
+            kernel=functools.partial(kernel, band_max=bmax), plain=plain,
+        )
+        timing = (ms, plain_ms) if ms is not None else timing
+        info = f"XMAX {xm} YMAX {ym}"
+        if stream:
+            ns = _nsteps(got)
+            info += (f" SMAX {extra[0]}, certified {(ns >= 0).sum()}, cert "
+                     f"failures {(ns <= -2).sum()}, bad walks {(ns == -1).sum()}")
+        else:
+            info += f", best score {got[:, 0].max()}"
+        t_ms = f", kernel {ms:.4f} ms, plain {plain_ms:.1f} ms" if ms else ""
+        log(f"  {name}: {len(m)} rows, {info}; {nbad} differ, "
+            f"max_abs_err {err}{t_ms}")
+        check(nbad == 0, f"kernel != plain on {name}")
+        if name.startswith("certificate"):
+            check((_nsteps(got) <= -2).any(),
+                  "certificate shapes produced no -2-c rows")
+        worst = max(worst, err)
+    return worst, timing
+
+
+def both_meta_forms(name, t, r, m, xm, ym, extra):
+    from thermite_tpu_torch.ops.layout import pack_meta_host
+
+    return [(f"{name} 9-col", t, r, m, xm, ym, extra),
+            (f"{name} 4-col", t, r, pack_meta_host(m), xm, ym, extra)]
 
 
 def phase_kernel(dev):
-    """Kernel == plain on synthetic cases; -> worst max_abs_err."""
+    """The packed kernel == plain on synthetic cases; -> (worst
+    max_abs_err, (ms, plain_ms) at the main-path chunk shape)."""
     from thermite_tpu_torch.ops.layout import pack_meta_host
+    from thermite_tpu_torch.ops.swg_stream import swg_stream
 
     cases = []
     for seed, bmax in ((0, 15), (1, 31)):
-        t, r, m, xm, ym = fuzz_problems(seed, 4096, bmax)
-        cases.append((f"fuzz band<={bmax} 9-col", t, r, m, xm, ym, 256))
-        cases.append((f"fuzz band<={bmax} 4-col", t, r, pack_meta_host(m), xm, ym, 256))
+        cases += both_meta_forms(f"fuzz band<={bmax}",
+                                 *fuzz_problems(seed, 4096, bmax), (256,))
     t, r, m, xm, ym = chunk_problems(7, 4096)
-    cases.append(("certificate shapes (band 60->15)", t, r, m, xm, ym, 384))
+    cases.append(("certificate shapes (band 60->15)", t, r, m, xm, ym, (384,)))
     t, r, m, xm, ym = chunk_problems(8, 65536)
     cases.append(("main-path chunk shape (65536 rows, band<=15)", t, r,
-                  pack_meta_host(m), xm, ym, 208))
-    worst = 0
-    for name, t, r, m, xm, ym, smax in cases:
-        words, rnib, mt = _to_dev(t, r, m, dev)
-        nbad, err, ms, plain_ms, ns = compare_kernel(
-            (words, words.shape[0], rnib, mt, xm, ym, smax),
-            reps=20 if len(m) == 65536 else 0,
-        )
-        timing = f", kernel {ms:.4f} ms, plain {plain_ms:.1f} ms" if ms else ""
-        log(f"  {name}: XMAX {xm} YMAX {ym} SMAX {smax}, {len(ns)} rows, "
-            f"{nbad} differ, max_abs_err {err}, certified {(ns >= 0).sum()}, "
-            f"cert failures {(ns <= -2).sum()}, bad walks {(ns == -1).sum()}"
-            f"{timing}")
-        check(nbad == 0, f"kernel != plain on {name}")
-        if name.startswith("certificate"):
-            check((ns <= -2).any(), "certificate shapes produced no -2-c rows")
-        worst = max(worst, err)
-    return worst
+                  pack_meta_host(m), xm, ym, (208,)))
+    return run_cases(dev, cases, swg_stream)
+
+
+def general_band_cases():
+    """(name, problems, SMAX) of phases 2b and 2c: fuzz shapes per slot
+    class, bands above XMAX (4 and 32 slots per lane), and the full-band
+    chunk shape of the main path (65536 rows, band 60)."""
+    from thermite_tpu_torch.ops.layout import pack_meta_host
+
+    specs = [  # name, seed, n, band_min, band_max, XMAX, YMAX, SMAX
+        ("fuzz band<=63", 10, 4096, 0, 63, 64, 96, 176),
+        ("fuzz band<=127", 11, 4096, 0, 127, 128, 192, 336),
+        ("fuzz band<=255 (windows 512)", 12, 2048, 128, 255, 512, 512, 1040),
+        ("band>XMAX (XMAX 96)", 13, 4096, 97, 1023, 96, 160, 272),
+        ("band>XMAX (XMAX 512, 1024 slots)", 14, 1024, 513, 1023, 512, 512, 1040),
+    ]
+    cases = []
+    for name, seed, n, lo, hi, xm, ym, smax in specs:
+        t, r, m, _, _ = fuzz_problems(seed, n, hi, xm, ym, band_min=lo)
+        cases += both_meta_forms(name, t, r, m, xm, ym, (smax,))
+    t, r, m, xm, ym = chunk_problems(9, 65536, wide=60, narrow=60)
+    cases.append(("full-band chunk shape (65536 rows, band 60)", t, r,
+                  pack_meta_host(m), xm, ym, (256,)))
+    return cases
+
+
+def phase_kernel_wide(dev, cases):
+    """The general-band stream kernel == plain; -> (worst max_abs_err,
+    (ms, plain_ms) at the full-band chunk shape)."""
+    from thermite_tpu_torch.ops.swg_stream import swg_stream_wide
+
+    launches = swg_stream_wide.launches
+    out = run_cases(dev, cases, swg_stream_wide)
+    check(swg_stream_wide.launches - launches >= len(cases),
+          "the general-band kernel did not launch on every case")
+    return out
+
+
+def phase_kernel_forward(dev, cases):
+    """The forward-scores kernel == plain; -> (worst max_abs_err,
+    (ms, plain_ms) at the full-band chunk shape)."""
+    from thermite_tpu_torch.ops.swg_forward import swg_forward, swg_forward_plain
+
+    extra = both_meta_forms("fuzz band<=15", *fuzz_problems(15, 4096, 15), ())
+    launches = swg_forward.launches
+    out = run_cases(dev, extra + [c[:6] + ((),) for c in cases],
+                    swg_forward, plain=swg_forward_plain, stream=False)
+    check(swg_forward.launches - launches >= len(cases) + len(extra),
+          "the forward kernel did not launch on every case")
+    return out
 
 
 def _bam_primary_flags(raw: bytes) -> np.ndarray:
@@ -222,6 +334,39 @@ def _bam_primary_flags(raw: bytes) -> np.ndarray:
     return np.asarray(flags)
 
 
+def reset_launches():
+    from thermite_tpu_torch.ops.swg_forward import swg_forward
+    from thermite_tpu_torch.ops.swg_stream import swg_stream, swg_stream_wide
+
+    swg_stream.launches = swg_stream_wide.launches = swg_forward.launches = 0
+
+
+def read_launches() -> dict:
+    from thermite_tpu_torch.ops.swg_forward import swg_forward
+    from thermite_tpu_torch.ops.swg_stream import swg_stream, swg_stream_wide
+
+    return {"swg_stream": swg_stream.launches,
+            "swg_stream_wide": swg_stream_wide.launches,
+            "swg_forward": swg_forward.launches}
+
+
+def timed_runs(aligner, recs, first_s):
+    """Four more runs of the batch after one of ``first_s`` seconds;
+    logs the five reads/s and returns their median."""
+    import torch
+
+    rates = [len(recs) / first_s]
+    for _ in range(4):
+        t = time.perf_counter()
+        aligner.align_batch_emit(recs, True)
+        torch.cuda.synchronize()
+        rates.append(len(recs) / (time.perf_counter() - t))
+    med = float(np.median(rates))
+    log("  reads/s over 5 runs of the batch: "
+        + " ".join(f"{r:.1f}" for r in rates) + f"; median {med:.1f}")
+    return med
+
+
 def phase_syn45(tmp):
     """Index syn45 in memory and run the main path once, counted."""
     import torch
@@ -230,7 +375,6 @@ def phase_syn45(tmp):
     from thermite_tpu.index.build import Index
     from thermite_tpu.testing.synth import make_truth_reads, write_synth_genome
     from thermite_tpu_torch.align.batch import BatchAligner
-    from thermite_tpu_torch.ops.swg_stream import swg_stream
 
     t0 = time.perf_counter()
     fasta, gtf = write_synth_genome(tmp, SYN_BP, seed=1234, basename="syn45")
@@ -254,37 +398,93 @@ def phase_syn45(tmp):
         f"(resident text {aligner._ref_text().numel() * 4 / 1e6:.1f} MB)")
 
     aligner.stats.reset()
-    swg_stream.launches = 0
+    reset_launches()
     t4 = time.perf_counter()
     raw = aligner.align_batch_emit(recs, True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t4
-    launches = swg_stream.launches
+    launches = read_launches()
     stats = aligner.stats
     report = stats.report()
     flags = _bam_primary_flags(raw)
     mapped = float(np.mean((flags & 4) == 0)) if len(flags) else 0.0
     log(f"  main path: {N_READS} reads, {stats.chunks} chunks, "
-        f"swg_stream launches {launches}, {len(raw)} BAM bytes, "
+        f"launches {launches}, {len(raw)} BAM bytes, "
         f"mapped {100 * mapped:.2f}%, cert patches {stats.cert_patches}, "
         f"wall {wall:.3f} s = {N_READS / wall:.1f} reads/s")
     log(report)
     check(len(flags) == N_READS, f"{len(flags)} primary records for {N_READS} reads")
-    check(stats.chunks >= 1 and launches >= stats.chunks,
+    check(stats.chunks >= 1 and launches["swg_stream"] >= stats.chunks,
           f"{launches} kernel launches for {stats.chunks} chunks")
     check(mapped > 0.9, f"only {100 * mapped:.2f}% of reads mapped")
-
-    rates = [N_READS / wall]
-    for _ in range(4):
-        t5 = time.perf_counter()
-        aligner.align_batch_emit(recs, True)
-        torch.cuda.synchronize()
-        rates.append(N_READS / (time.perf_counter() - t5))
-    log("  reads/s over 5 runs of the batch: "
-        + " ".join(f"{r:.1f}" for r in rates)
-        + f"; median {float(np.median(rates)):.1f}")
+    timed_runs(aligner, recs, wall)
     _profile_run(aligner, recs)
-    return index, opts, aligner, recs, launches
+    return index, opts, aligner, recs, warm, raw, launches["swg_stream"]
+
+
+def phase_full_band(index, opts, recs, warm, raw_narrow):
+    """The same reads at full band: the general-band kernel on band 60,
+    the same BAM bytes as the narrowed run."""
+    import torch
+
+    from thermite_tpu_torch.align.batch import BatchAligner
+
+    aligner = BatchAligner(index, opts, device="cuda")
+    aligner.narrow_band = 0
+    aligner.align_batch_emit(warm, True)
+    torch.cuda.synchronize()
+    aligner.stats.reset()
+    reset_launches()
+    t0 = time.perf_counter()
+    raw = aligner.align_batch_emit(recs, True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    stats = aligner.stats
+    log(f"  full band: {N_READS} reads, {stats.chunks} chunks, launches "
+        f"{launches}, XMAX {aligner._XMAX} YMAX {aligner._YMAX} SMAX "
+        f"{aligner._SMAX}, {len(raw)} BAM bytes, == narrowed run: "
+        f"{raw == raw_narrow}, cert patches {stats.cert_patches}, "
+        f"wall {wall:.3f} s = {N_READS / wall:.1f} reads/s")
+    log(stats.report())
+    check(raw == raw_narrow, "full-band BAM bytes differ from the narrowed run's")
+    check(launches["swg_stream_wide"] >= stats.chunks >= 1,
+          f"{launches} kernel launches for {stats.chunks} chunks")
+    check(launches["swg_stream"] == 0, "the packed kernel ran at full band")
+    timed_runs(aligner, recs, wall)
+    return launches["swg_stream_wide"]
+
+
+def phase_no_native(index, opts, aligner, recs):
+    """The path without the C++ engine on the first N_NO_NATIVE reads:
+    the same BAM bytes as the C++ engine's path."""
+    import torch
+
+    from thermite_tpu_torch.align.batch import BatchAligner
+
+    sub = recs[:N_NO_NATIVE]
+    want = aligner.align_batch_emit(sub, True)
+    py = BatchAligner(index, opts, device="cuda", use_native=False)
+    py.align_batch_emit(sub[:256], True)  # text upload
+    torch.cuda.synchronize()
+    py.stats.reset()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = py.align_batch_emit(sub, True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    stats = py.stats
+    log(f"  no C++ engine: {len(sub)} reads, {stats.chunks} chunks, "
+        f"{stats.problems} problems, {stats.winners} winners, launches "
+        f"{launches}, {len(got)} BAM bytes, == C++ engine path: "
+        f"{got == want}, wall {wall:.3f} s = {len(sub) / wall:.1f} reads/s")
+    log(stats.report())
+    check(got == want, "BAM bytes without the C++ engine differ")
+    check(launches["swg_forward"] >= stats.chunks >= 1
+          and launches["swg_stream_wide"] >= stats.chunks,
+          f"{launches} kernel launches for {stats.chunks} chunks")
+    return launches["swg_forward"]
 
 
 def _profile_run(aligner, recs):
@@ -327,6 +527,7 @@ def phase_cpp_referee(aligner, recs):
     """One syn45 chunk: kernel == plain on its real rows (timed), and
     every certified row == the C++ full-band scalar SWG."""
     from thermite_tpu_torch.ops.layout import expand_stream_hdr
+    from thermite_tpu_torch.ops.swg_stream import swg_stream
 
     reads = [r[1] for r in recs]
     aligner._pin_shapes(reads)
@@ -359,7 +560,8 @@ def phase_cpp_referee(aligner, recs):
     words = aligner._ref_text()
     args = (words, words.shape[0], st.reads_dev, meta, aligner._XMAX,
             aligner._YMAX, aligner._SMAX)
-    nbad, err, ms, plain_ms, _ = compare_kernel(args, reps=20)
+    kernel = functools.partial(swg_stream, band_max=int(sub[:, 7].max(initial=1)))
+    nbad, err, ms, plain_ms, _ = compare_kernel(args, reps=20, kernel=kernel)
     log(f"  kernel vs plain on this chunk ({len(sub)} rows padded to "
         f"{aligner._NFWD1}, XMAX {aligner._XMAX} YMAX {aligner._YMAX} "
         f"SMAX {aligner._SMAX}): {nbad} differ, max_abs_err {err}, "
@@ -414,7 +616,7 @@ def phase_cli(index, tmp, recs):
     return got, t1 - t0, t2 - t1, rc, build_sam_header(index).encode()
 
 
-def run() -> dict:
+def run(kernels_only: bool = False) -> dict:
     import torch
 
     t = time.perf_counter()
@@ -431,11 +633,13 @@ def run() -> dict:
     from thermite_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    path = _build.build_kernels()
-    log(f"  kernel: {os.path.relpath(path, ROOT)} in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"    {line.strip()}")
+    paths = _build.build_kernels()
+    log(f"  kernels built in parallel in {time.perf_counter() - t0:.1f} s")
+    for name, path in paths.items():
+        log(f"  {name}: {os.path.relpath(path, ROOT)}")
+        for line in _build.build_log.get(name, "").splitlines():
+            if any(k in line for k in ("entry function", "registers", "spill")):
+                log(f"    {line.strip()}")
     t0 = time.perf_counter()
     _build.native_engine()
     log(f"  C++ host engine ready in {time.perf_counter() - t0:.1f} s")
@@ -443,48 +647,81 @@ def run() -> dict:
     log(f"phase 1 done in {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
-    log("phase 2: swg_stream kernel vs swg_stream_plain (bit-exact)")
-    worst = phase_kernel(dev)
+    log("phase 2: packed stream kernel vs swg_stream_plain (bit-exact)")
+    worst1, _ = phase_kernel(dev)
     log(f"phase 2 done in {time.perf_counter() - t:.1f} s")
 
-    os.makedirs(os.path.join(ROOT, "data", "out"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "data", "out")) as tmp:
-        t = time.perf_counter()
-        log("phase 3: syn45 main path (BatchAligner.align_batch_emit, BAM)")
-        index, opts, aligner, recs, launches = phase_syn45(tmp)
-        log(f"phase 3 done in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    log("phase 2b: general-band stream kernel vs swg_stream_plain (bit-exact)")
+    cases = general_band_cases()
+    worst2, (ms2, plain_ms2) = phase_kernel_wide(dev, cases)
+    log(f"phase 2b done in {time.perf_counter() - t:.1f} s")
 
-        t = time.perf_counter()
-        log("phase 4: C++ full-band referee on one syn45 chunk")
-        err, ms, plain_ms = phase_cpp_referee(aligner, recs)
-        log(f"phase 4 done in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    log("phase 2c: forward-scores kernel vs swg_forward_plain (bit-exact)")
+    worst3, (ms3, plain_ms3) = phase_kernel_forward(dev, cases)
+    log(f"phase 2c done in {time.perf_counter() - t:.1f} s")
+    del cases
 
-        t = time.perf_counter()
-        log(f"phase 5: oracle referee on the first {N_ORACLE} reads")
-        phase_oracle(index, opts, aligner, recs)
-        log(f"phase 5 done in {time.perf_counter() - t:.1f} s")
+    launches = {"swg_stream": None, "swg_stream_wide": None, "swg_forward": None}
+    err = ms = plain_ms = None
+    if not kernels_only:
+        os.makedirs(os.path.join(ROOT, "data", "out"), exist_ok=True)
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(ROOT, "data", "out")) as tmp:
+            t = time.perf_counter()
+            log("phase 3: syn45 main path (BatchAligner.align_batch_emit, BAM)")
+            index, opts, aligner, recs, warm, raw, launches["swg_stream"] = \
+                phase_syn45(tmp)
+            log(f"phase 3 done in {time.perf_counter() - t:.1f} s")
 
-        t = time.perf_counter()
-        log("phase 6: CLI (index save/load, align to SAM) on 2000 reads")
-        got, save_s, align_s, rc, header = phase_cli(index, tmp, recs)
-        want = header + aligner.align_batch_emit(recs[:2000], False)
-        log(f"  index save {save_s:.1f} s, CLI align {align_s:.1f} s, rc {rc}, "
-            f"CLI SAM == in-memory emit: {got == want}")
-        check(rc == 0 and got == want, "CLI SAM differs from the in-memory emit")
-        log(f"phase 6 done in {time.perf_counter() - t:.1f} s")
+            t = time.perf_counter()
+            log("phase 3b: syn45 at full band (narrow_band 0)")
+            launches["swg_stream_wide"] = phase_full_band(index, opts, recs,
+                                                          warm, raw)
+            log(f"phase 3b done in {time.perf_counter() - t:.1f} s")
+            del warm, raw
 
-    return {
-        "kernels": [{
-            "name": "swg_stream",
-            "route": "cuda",
-            "source": "thermite_tpu_torch/csrc/swg_stream.cu",
-            "replaces": "thermite_tpu/ops/swg_pallas_packed.py:88",
-            "launches": launches,
-            "max_abs_err": max(worst, err),
-            "ms": ms,
-            "plain_ms": plain_ms,
-        }]
-    }
+            t = time.perf_counter()
+            log(f"phase 3c: syn45 without the C++ engine on {N_NO_NATIVE} reads")
+            launches["swg_forward"] = phase_no_native(index, opts, aligner, recs)
+            log(f"phase 3c done in {time.perf_counter() - t:.1f} s")
+
+            t = time.perf_counter()
+            log("phase 4: C++ full-band referee on one syn45 chunk")
+            err, ms, plain_ms = phase_cpp_referee(aligner, recs)
+            log(f"phase 4 done in {time.perf_counter() - t:.1f} s")
+
+            t = time.perf_counter()
+            log(f"phase 5: oracle referee on the first {N_ORACLE} reads")
+            phase_oracle(index, opts, aligner, recs)
+            log(f"phase 5 done in {time.perf_counter() - t:.1f} s")
+
+            t = time.perf_counter()
+            log("phase 6: CLI (index save/load, align to SAM) on 2000 reads")
+            got, save_s, align_s, rc, header = phase_cli(index, tmp, recs)
+            want = header + aligner.align_batch_emit(recs[:2000], False)
+            log(f"  index save {save_s:.1f} s, CLI align {align_s:.1f} s, "
+                f"rc {rc}, CLI SAM == in-memory emit: {got == want}")
+            check(rc == 0 and got == want,
+                  "CLI SAM differs from the in-memory emit")
+            log(f"phase 6 done in {time.perf_counter() - t:.1f} s")
+
+    def record(name, source, replaces, worst, k_ms, p_ms):
+        return {"name": name, "route": "cuda",
+                "source": f"thermite_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms}
+
+    return {"kernels": [
+        record("swg_stream", "swg_stream.cu",
+               "thermite_tpu/ops/swg_pallas_packed.py:88",
+               max(worst1, err or 0), ms, plain_ms),
+        record("swg_stream_wide", "swg_stream_wide.cu",
+               "thermite_tpu/ops/swg_pallas.py:409", worst2, ms2, plain_ms2),
+        record("swg_forward", "swg_forward.cu",
+               "thermite_tpu/ops/swg_pallas.py:185", worst3, ms3, plain_ms3),
+    ]}
 
 
 def main() -> int:
@@ -495,7 +732,7 @@ def main() -> int:
               "runs only on a CUDA card", file=sys.stderr)
         return 2
     try:
-        result = run()
+        result = run(kernels_only="--kernels-only" in sys.argv[1:])
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,11 +1,13 @@
-"""The CUDA kernel's scalar logic, built for the host with g++.
+"""The CUDA kernels' scalar logic, built for the host with g++.
 
-csrc/swg_stream.cuh keeps meta unpacking, the nibble gather, the
-direction-plane layout, the traceback walk, code packing and header
-packing as __host__ __device__ functions; csrc/swg_stream_host.cpp
-exposes them with a C interface.  They are held equal to the plain
-PyTorch version on the fuzz and certificate rows (tolerance 0).  This is
-the only check of kernel code that runs without a GPU."""
+csrc/swg_stream.cuh keeps meta unpacking, the nibble gather, the slot
+classes and shared-memory sizing of a launch, the direction-plane
+layout, the traceback walk, code packing and header packing as
+__host__ __device__ functions; csrc/swg_stream_host.cpp exposes them
+with a C interface.  They are held equal to the plain PyTorch version on
+the fuzz, general-band and certificate rows, for every slot class the
+kernels instantiate (tolerance 0).  This is the only check of kernel
+code that runs without a GPU."""
 
 import ctypes
 import os
@@ -17,8 +19,9 @@ import pytest
 import torch
 
 from test_torch_swg_stream import _fuzz_case, _narrow_case
+from test_torch_swg_wide import general_case
 from thermite_tpu_torch.ops import swg_stream as ss
-from thermite_tpu_torch.ops.layout import _WPAD, pack_meta_host
+from thermite_tpu_torch.ops.layout import _WPAD, pack_meta_host, smax_for
 
 CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -45,6 +48,10 @@ def host_lib(tmp_path_factory):
     lib.thermite_swg_host_walk.argtypes = [
         p, i32, i32, p, p, p, p, p, i64, i32, p, p,
     ]
+    lib.thermite_swg_host_slots_for.restype = i32
+    lib.thermite_swg_host_slots_for.argtypes = [i32, i32]
+    lib.thermite_swg_host_smem.restype = i32
+    lib.thermite_swg_host_smem.argtypes = [i32, i32, i32, i32, i32, p]
     return lib
 
 
@@ -93,12 +100,12 @@ def _planes(dirs: np.ndarray) -> np.ndarray:
     return out.reshape(N, Y, 2 * slots).astype(np.uint32)
 
 
-def _walk_case(host_lib, words, rnib, meta, XMAX, YMAX, SMAX):
+def _walk_case(host_lib, words, rnib, meta, XMAX, YMAX, SMAX, slots=None):
     m9 = torch.from_numpy(np.ascontiguousarray(meta))
     x, y = ss._windows(torch.from_numpy(words), torch.from_numpy(rnib), m9,
                        XMAX, YMAX)
     xlen, ylen, band, xdrop = (m9[:, k] for k in (6, 3, 7, 8))
-    L = 32 if int(band.max()) <= 15 else 64
+    L = 32 * (slots or ss.stream_slots(int(band.max()), XMAX))
     ms, mi, mj, cert, dirs = ss._forward_plain(x, y, xlen, ylen, band, xdrop, L)
     c, bad, streams = ss._walk_plain(dirs, mi, mj, band, SMAX)
     ns = torch.where(bad, -1, torch.where(cert, c, -2 - c))
@@ -135,3 +142,39 @@ def test_walk_and_header_certificate_and_short_smax(host_lib):
     assert (ns <= -2).any()
     ns = _walk_case(host_lib, words, rnib, meta, 96, 128, 48)
     assert (ns == -1).any() and (ns >= 0).any()
+
+
+@pytest.mark.parametrize("slots", [4, 8, 16, 32])
+def test_walk_and_header_general_band(host_lib, slots):
+    """dir_at<SLOTS> / walk<SLOTS> of the general kernel's classes: the
+    planes of a forward pass over 32*SLOTS slots (more than the bands
+    need: extra slots are never computed), walked on the host."""
+    words, rnib, meta = general_case(20 + slots, 24, 32, 110, 96, 128)
+    ns = _walk_case(host_lib, words, rnib, meta, 96, 128, 240, slots=slots)
+    assert (ns > 0).any()
+
+
+def test_slot_classes_match_python(host_lib):
+    for xmax in (1, 20, 31, 32, 63, 64, 96, 200, 255, 256, 511, 512):
+        for band in range(0, 1024, 7):
+            assert host_lib.thermite_swg_host_slots_for(band, xmax) == \
+                ss.slots_per_lane(band, xmax), (band, xmax)
+
+
+def test_shared_memory_fits_every_accepted_shape(host_lib):
+    """Warps per block follow from the per-warp shared memory, so every
+    window the reference accepts (XMAX, YMAX <= 512, SMAX up to
+    smax_for(512, 512)) launches within the 227 KB opt-in limit."""
+    warps = np.zeros(1, np.int32)
+    pw = smax_for(_WPAD, _WPAD) // 16
+    for slots in (2, 4, 8, 16, 32):
+        for ymax in (32, 128, 160, 256, 512):
+            words = host_lib.thermite_swg_host_smem(_WPAD, ymax, pw, slots, 4,
+                                                    _ptr(warps))
+            assert words == ((ymax + 1) * 2 * slots + pw + (_WPAD + 3) // 4
+                             + (ymax + 3) // 4)
+            assert 1 <= warps[0] <= 4
+            assert warps[0] * words * 4 <= 232448
+    # the direction planes alone at SLOTS 32, YMAX 512: one warp per block
+    host_lib.thermite_swg_host_smem(_WPAD, _WPAD, pw, 32, 4, _ptr(warps))
+    assert warps[0] == 1

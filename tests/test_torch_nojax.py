@@ -1,9 +1,12 @@
-"""The port's CPU main path runs with JAX blocked.
+"""The port's CPU paths run with JAX blocked.
 
 A subprocess installs a meta-path finder that refuses every ``jax`` and
 ``jaxlib`` import, then runs the port's CLI: index from FASTA/GTF, save,
-load, and ``align --device cpu`` to SAM.  No jax module may load, and
-the SAM bytes must equal the reference CLI's in this (JAX) process."""
+load, and ``align --device cpu`` to SAM; then the full-band path
+(``THERMITE_NARROW_BAND=0``) and the path without the C++ engine
+(``use_native=False``) on the loaded index, whose SAM records must equal
+the main path's.  No jax module may load, and the CLI's SAM bytes must
+equal the reference CLI's in this (JAX) process."""
 
 import os
 import subprocess
@@ -30,6 +33,24 @@ ref, gtf, fq, idx, out = sys.argv[1:6]
 assert main(["index", ref, gtf, "-o", idx]) == 0
 assert main(["align", idx, fq, "-o", out, "-a", "-k", "3",
              "--min-aln-score", "0", "--intron-mode", "--device", "cpu"]) == 0
+
+import os
+from thermite_tpu.align.driver import AlignOpts
+from thermite_tpu.index.build import Index
+from thermite_tpu.io.fastx import parse_fastx
+from thermite_tpu_torch.align.batch import BatchAligner
+
+index = Index.load(idx)
+opts = AlignOpts(min_seed_len=3, min_aln_score=0, intron_mode=True)
+recs = [(r.id, r.seq, r.qual) for r in parse_fastx(fq)]
+main_sam = BatchAligner(index, opts, device="cpu").align_batch_emit(recs, False)
+os.environ["THERMITE_NARROW_BAND"] = "0"
+full = BatchAligner(index, opts, device="cpu")
+assert full.narrow_band == 0
+assert full.align_batch_emit(recs, False) == main_sam
+no_native = BatchAligner(index, opts, device="cpu", use_native=False)
+assert no_native.align_batch_emit(recs, False) == main_sam
+assert main_sam.count(b"\tAS:i:") > 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
 assert not loaded, loaded
 print("NOJAX-OK")

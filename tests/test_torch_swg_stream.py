@@ -192,7 +192,10 @@ def test_wrapper_rejects_bad_inputs():
         swg_stream(w, len(words), r, m[:, :5].contiguous(), XMAX, YMAX, 256)
     with pytest.raises(ValueError):
         swg_stream(w, len(words), r, m, XMAX, YMAX, 250)
+    with pytest.raises(ValueError):
+        swg_stream(w, len(words), r, m, XMAX, 600, 256)  # beyond _WPAD
+    # bands above 31 are served (by the general kernel on the card)
     wide = m.clone()
     wide[:, 7] = 40
-    with pytest.raises(ValueError):
-        swg_stream(w, len(words), r, wide, XMAX, YMAX, 256)
+    hdr, _ = swg_stream(w, len(words), r, wide, XMAX, YMAX, 256)
+    assert hdr.shape == (len(m), 2)

@@ -1,14 +1,23 @@
 """Batched alignment pipeline on PyTorch and CUDA.
 
-The port of the reference ``thermite_tpu/align/batch.py`` on its main
-path: the C++ engine builds each chunk's extension problems, one launch
-of the CUDA stream kernel scores and walks every nontrivial problem,
-the packed headers come back to the host, narrow-band certificate
-failures are recomputed at full band by the C++ scalar SWG, the C++
-engine arbitrates, only the winners' op streams are gathered on the
-device and copied back, and the C++ engine finalizes and emits records.
-Outputs are identical to the reference pipeline's
-(tests/test_torch_batch.py).
+The port of the reference ``thermite_tpu/align/batch.py``.  On the main
+path the C++ engine builds each chunk's extension problems, one launch
+of a CUDA stream kernel scores and walks every nontrivial problem, the
+packed headers come back to the host, certificate failures are
+recomputed at full band by the C++ scalar SWG, the C++ engine
+arbitrates, only the winners' op streams are gathered on the device and
+copied back, and the C++ engine finalizes and emits records.  Problems
+go to the device at band min(band, THERMITE_NARROW_BAND) (default 15:
+the packed kernel); 0 turns the narrowing off, and bands above 31 run on
+the general-band kernel.
+
+With ``use_native=False`` the chunk runs without the C++ engine, as the
+reference's fallback path does: Python builds the problems, the
+forward-scores kernel scores them, Python arbitrates, the stream kernel
+walks the winners only (fused rows), and the walks are decoded, stitched
+and lifted in Python.  Outputs of every path are identical to the
+reference pipeline's (tests/test_torch_batch.py,
+tests/test_torch_batch_full_band.py, tests/test_torch_batch_no_native.py).
 
 Chunks flow through a 3-stage software pipeline (build -> device ->
 arbitrate/finalize) two deep: while the card runs chunk k the host
@@ -20,14 +29,15 @@ event that the host waits on where it needs the values.
 from __future__ import annotations
 
 import gc
-from dataclasses import dataclass
-from typing import List, Optional, Tuple
+import os
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from thermite_tpu.align.driver import AlignOpts, concat_to_chr_aln
-from thermite_tpu.align.extend import stitch
+from thermite_tpu.align.driver import AlignOpts, concat_to_chr_aln, filter_overlapping
+from thermite_tpu.align.extend import extend_seed_match, stitch
 from thermite_tpu.align.types import (
     EXONIC,
     INTERGENIC,
@@ -37,8 +47,10 @@ from thermite_tpu.align.types import (
     Mem,
     RunOps,
 )
+from thermite_tpu.constants import MATCH_SCORE
 from thermite_tpu.index.build import Index
-from thermite_tpu.index.txome import lift_tx_to_gx
+from thermite_tpu.index.span_lift import lift_tx_span_to_gx
+from thermite_tpu.index.txome import lift_mem_to_tx, lift_tx_to_gx
 from thermite_tpu.utils.stats import PipelineStats
 
 from .. import device as _device
@@ -48,9 +60,11 @@ from ..ops.layout import (
     expand_stream_hdr,
     nib_lw,
     pack_meta_host,
+    pack_reads_nib_host,
     pack_text_nib_host,
 )
-from ..ops.swg_stream import BAND_MAX, swg_stream
+from ..ops.swg_forward import swg_forward
+from ..ops.swg_stream import PACKED_BAND_MAX, swg_stream
 
 
 def _round_up(v: int, m: int) -> int:
@@ -85,12 +99,49 @@ class _HostCopy:
         return self._host.numpy()
 
 
+class _Problems:
+    """Extension problems of a chunk built in Python, one 9-int32 meta
+    row each (``layout.META_COLS``): gather offsets into the resident
+    nibble-packed text and the chunk's read block."""
+
+    __slots__ = ("rows",)
+
+    def __init__(self):
+        self.rows: List[Tuple[int, ...]] = []
+
+    def add(self, y_base, y_dir, ylen, x_base, x_dir, xlen, band, x_drop) -> int:
+        lo = y_base + _WPAD
+        self.rows.append(
+            (lo >> 3, lo & 7, y_dir, ylen, x_base, x_dir, xlen, band, x_drop)
+        )
+        return len(self.rows) - 1
+
+    def meta(self) -> np.ndarray:
+        return np.asarray(self.rows, np.int32).reshape(len(self.rows), 9)
+
+    def __len__(self):
+        return len(self.rows)
+
+
 @dataclass
 class _ChunkState:
     """Per-chunk state flowing through build -> device -> arbitrate ->
     finalize."""
 
     reads: List[bytes]
+    # Python build (no C++ engine)
+    problems: _Problems = field(default_factory=_Problems)
+    tasks: List["_Task"] = field(default_factory=list)
+    read_params: List[Tuple[int, int, int]] = field(default_factory=list)
+    per_read_tasks: List[List["_Task"]] = field(default_factory=list)
+    selected: List[List[Tuple[GenomeAlignment, "_Task"]]] = field(
+        default_factory=list
+    )
+    fwd: Optional[_HostCopy] = None  # forward scores (Nb, 4) in flight
+    tb: Optional[_HostCopy] = None  # winners' fused stream rows in flight
+    tb_idx: Optional[np.ndarray] = None  # winner slots sent to the kernel
+    tb_meta_sub: Optional[np.ndarray] = None  # winners' meta rows
+    # C++ engine
     native_ch: object = None  # C++ chunk handle
     meta_all: Optional[np.ndarray] = None  # (P, 9) problem meta
     tasks_arr: Optional[np.ndarray] = None  # (T, 10) int64
@@ -110,17 +161,21 @@ class _ChunkState:
 
 @dataclass
 class _Task:
-    """One native task row (C++ T_* column layout), for the host
-    recompute of a flagged stream."""
+    """One alignment task: a seed hit and its left/right extension
+    problems (built in Python, or decoded from a native task row)."""
 
     read_i: int
     kind: str  # 'gx' | 'tx'
-    hit: Mem
+    hit: Mem  # window-relative (gx) or tx-relative (tx)
     left_pid: int
     right_pid: int
-    ref_len: int
-    seq_start: int
-    tx_idx: int
+    ref_len: int  # window length (gx) or len(tx.seq)
+    seq_start: int = 0  # gx: window start in concatenated coords
+    abs_hit: Optional[Mem] = None  # gx: absolute hit (for classification)
+    tx_idx: int = -1
+    # filled after scoring (Python arbitration):
+    score: int = 0
+    span: Tuple[int, int, int, int] = (0, 0, 0, 0)  # ystart, yend, xstart, xend
 
 
 class BatchAligner:
@@ -129,23 +184,28 @@ class BatchAligner:
     PROBLEM_BUDGET = 65536 - 2048
     PIPELINE_DEPTH = 2
 
-    def __init__(self, index: Index, opts: AlignOpts, device="cuda"):
+    def __init__(self, index: Index, opts: AlignOpts, device="cuda",
+                 use_native: bool = True):
         self.device = _device.resolve(device)
         self.index = index
         self.opts = opts
         # problems are submitted at band min(band, narrow_band); the
         # kernel certifies each result exact at any wider band, and the
-        # C++ scalar SWG recomputes the rest at the original band
-        self.narrow_band = 15
+        # C++ scalar SWG recomputes the rest at the original band.  0
+        # submits the original bands (no narrowing); narrowing needs the
+        # C++ engine.
+        self.narrow_band = int(os.environ.get("THERMITE_NARROW_BAND", "15"))
         self.stats = PipelineStats()
         # sticky shape maxima (raised per batch, never lowered)
-        self._RPAD = self._XMAX = self._YMAX = 0
-        self._SMAX = self._SMAX_HOST = self._NFWD1 = self._NREADS = 0
+        self._RPAD = self._XMAX = self._YMAX = self._W = 0
+        self._SMAX = self._SMAX_HOST = self._NREADS = 0
+        self._NFWD1 = self._NFWD = self._NTB = 0
+        self._seg = None  # sticky lane width class (_packed_seg)
         self._est_chunk_reads = self.PROBLEM_BUDGET // 4
         self._ref_cols_c = None
 
+        # the seeder runs on the C++ engine's library as well
         _build.native_engine()
-        from thermite_tpu.align.native_batch import NativeBatchEngine
         from thermite_tpu.seed.kmer import MAX_ANCHOR_K
         from thermite_tpu.seed.native import make_seeder
 
@@ -183,11 +243,20 @@ class BatchAligner:
                     f"reference text contains non-ACGTN$ bytes ({bad}...): "
                     "the nibble-packed device text cannot represent them"
                 )
-        self.native = NativeBatchEngine(
-            index, opts, self.tx_off, self._ref_text_host,
-            opts.min_seed_len, min(MAX_ANCHOR_K, opts.min_seed_len),
-            seeder=self.seeder if hasattr(self.seeder, "_h") else None,
-        )
+        # the C++ build/arbitrate/finalize engine; a failure to load it
+        # raises (use_native=False asks for the Python host stages)
+        self.native = None
+        if use_native:
+            from thermite_tpu.align.native_batch import NativeBatchEngine
+
+            self.native = NativeBatchEngine(
+                index, opts, self.tx_off, self._ref_text_host,
+                opts.min_seed_len, min(MAX_ANCHOR_K, opts.min_seed_len),
+                seeder=self.seeder if hasattr(self.seeder, "_h") else None,
+            )
+
+    def _narrowing(self) -> bool:
+        return self.native is not None and self.narrow_band > 0
 
     # ------------------------------------------------------------------
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
@@ -223,11 +292,18 @@ class BatchAligner:
         the concatenated record bytes (SAM lines, BAM record blobs or PAF
         rows for ``fmt_bam`` False / True / 2; no header) in input order,
         emitted by the C++ engine.  A chunk where a stream needed the
-        host fallback is serialized by the Python writers instead, with
-        the same bytes."""
+        host fallback, and every chunk without the C++ engine, is
+        serialized by the Python writers instead, with the same bytes."""
         chunks: List[bytes] = []
 
         def fin(st, start):
+            if st.native_ch is None:
+                results = self._finalize_chunk(st)
+                chunks.append(_serialize_records(
+                    self.index, recs[start : start + len(results)], results,
+                    fmt_bam, strip_tags=strip_tags,
+                ))
+                return
             tb_out = self._take_tb(st)
             self.native.finalize(st.native_ch, tb_out, st.meta_all)
             sl = recs[start : start + len(st.reads)]
@@ -264,17 +340,19 @@ class BatchAligner:
             self.opts.min_aln_score,
         )
         band = max(maxlen - ms, 1)
-        kband = min(band, self.narrow_band)
+        kband = min(band, self.narrow_band) if self._narrowing() else band
         self._XMAX = max(_round_up(maxlen, 32), self._XMAX)
         self._YMAX = max(_round_up(maxlen + kband + 1, 32), self._YMAX)
+        self._W = max(_round_up(2 * kband + 1, 128), 128, self._W)
         # device rows carry narrow-band walks only; original-band
         # certificate patches land in the wider host array
         self._SMAX = max(_round_up(maxlen + (maxlen + kband + 1) + 2, 16),
                          self._SMAX)
         self._SMAX_HOST = max(_round_up(maxlen + (maxlen + band + 1) + 2, 16),
                               self._SMAX, self._SMAX_HOST)
-        self._NFWD1 = max(_pow2_bucket(self.PROBLEM_BUDGET + 1024, 128),
-                          self._NFWD1)
+        nb = _pow2_bucket(self.PROBLEM_BUDGET + 1024, 128)
+        self._NFWD1, self._NFWD, self._NTB = (
+            max(nb, v) for v in (self._NFWD1, self._NFWD, self._NTB))
         self._NREADS = max(
             _pow2_bucket(min(len(reads), self.PROBLEM_BUDGET), 256), self._NREADS
         )
@@ -309,7 +387,8 @@ class BatchAligner:
             self.stats.chunks += 1
             self.stats.reads += len(st.reads)
             self.stats.problems += len(st.meta_all)
-            self.stats.tasks += len(st.tasks_arr)
+            self.stats.tasks += len(
+                st.tasks if st.tasks_arr is None else st.tasks_arr)
             built.append(st)
             if len(built) - arb_i >= depth:
                 with self.stats.stage("arbitrate"):
@@ -333,6 +412,8 @@ class BatchAligner:
     # ------------------------------------------------------------------
     def _build_chunk(self, all_reads: List[bytes], start: int
                      ) -> Tuple[_ChunkState, int]:
+        if self.native is None:
+            return self._build_chunk_py(all_reads, start)
         # offer a bit more than the running reads-per-chunk estimate so
         # the problem budget, not the offer, usually cuts the chunk
         est = self._est_chunk_reads
@@ -362,6 +443,95 @@ class BatchAligner:
         st.reads_dev = self._upload(self.native.nib_pack_reads(upload))
         return st, start + consumed
 
+    def _build_chunk_py(self, all_reads: List[bytes], start: int
+                        ) -> Tuple[_ChunkState, int]:
+        """The chunk build without the C++ engine (reference
+        ``batch.py:683-788``): seed each read, and for every hit make a
+        genome task and one task per transcript the hit lies in, each
+        with a left and a right extension problem."""
+        opts, index = self.opts, self.index
+        st = _ChunkState(reads=[])
+        reads, problems = st.reads, st.problems
+        pos = start
+        while pos < len(all_reads) and len(problems) < self.PROBLEM_BUDGET:
+            read = all_reads[pos].upper()
+            pos += 1
+            reads.append(read)
+            ri = len(reads) - 1
+            min_aln_score = max(
+                int(opts.min_aln_score_percent * float(len(read))),
+                opts.min_aln_score,
+            )
+            band = max(len(read) - min_aln_score, 0)
+            x_drop = band
+            st.read_params.append((min_aln_score, band, x_drop))
+            read_off = ri * self._RPAD
+            rtasks: List[_Task] = []
+            for hit in self.seeder.all_smems(read):
+                aln_ref, _ = index.idx_to_ref(hit.ref_idx)
+                # genome window (reference src/aligner.rs:209-227)
+                seq_start = max(hit.ref_idx - (len(read) + band),
+                                aln_ref.start_idx)
+                seq_end = min(hit.ref_idx + hit.len + len(read) + band,
+                              aln_ref.end_idx - 1)
+                lp, rp = self._extend_problems(
+                    problems, hit.ref_idx, hit.len, seq_start, seq_end,
+                    read_off, hit.query_idx, len(read), band, x_drop,
+                )
+                rtasks.append(_Task(
+                    read_i=ri, kind="gx",
+                    hit=Mem(hit.ref_idx - seq_start, hit.query_idx, hit.len),
+                    left_pid=lp, right_pid=rp, ref_len=seq_end - seq_start,
+                    seq_start=seq_start, abs_hit=hit,
+                ))
+                # transcriptome candidates (src/aligner.rs:230-258)
+                tx_idxs = sorted(set(index.txome.exon_to_tx.find(
+                    hit.ref_idx, hit.ref_idx + hit.len).tolist()))
+                for tx_idx in tx_idxs:
+                    tx = index.txome.txs[tx_idx]
+                    tx_seed = extend_seed_match(tx.seq, lift_mem_to_tx(hit, tx),
+                                                read)
+                    base = int(self.tx_off[tx_idx])
+                    y_lo_tx = max(tx_seed.ref_idx - (len(read) + band), 0)
+                    lp, rp = self._extend_problems(
+                        problems, base + tx_seed.ref_idx, tx_seed.len,
+                        base + y_lo_tx, base + len(tx.seq),
+                        read_off, tx_seed.query_idx, len(read), band, x_drop,
+                    )
+                    rtasks.append(_Task(
+                        read_i=ri, kind="tx", hit=tx_seed, left_pid=lp,
+                        right_pid=rp, ref_len=len(tx.seq), abs_hit=hit,
+                        tx_idx=tx_idx,
+                    ))
+            st.per_read_tasks.append(rtasks)
+            st.tasks.extend(rtasks)
+
+        reads_pad = np.zeros((self._reads_bucket(len(reads)), self._RPAD),
+                             np.uint8)
+        for ri, r in enumerate(reads):
+            reads_pad[ri, : len(r)] = np.frombuffer(r, np.uint8)
+        st.reads_host = reads_pad
+        st.reads_dev = self._upload(pack_reads_nib_host(reads_pad.reshape(-1)))
+        st.meta_all = problems.meta()
+        return st, pos
+
+    @staticmethod
+    def _extend_problems(problems, seed_y, seed_len, y_lo, y_hi, read_off,
+                         q_idx, read_len, band, x_drop):
+        """Right and (reversed) left extension problems of a seed
+        (reference src/aligner.rs:352-375) as gather offsets; ylen is
+        clamped to xlen + band + 1, past which no cell exists."""
+        xlen_r = read_len - q_idx - seed_len
+        yb_r = seed_y + seed_len
+        ylen_r = max(min(y_hi - yb_r, xlen_r + band + 1), 0)
+        rp = problems.add(yb_r, 1, ylen_r, read_off + q_idx + seed_len, 1,
+                          xlen_r, band, x_drop)
+        xlen_l = q_idx
+        ylen_l = max(min(seed_y - y_lo, xlen_l + band + 1), 0)
+        lp = problems.add(seed_y - 1, -1, ylen_l, read_off + q_idx - 1, -1,
+                          xlen_l, band, x_drop)
+        return lp, rp
+
     def _pack_meta(self, meta: np.ndarray) -> np.ndarray:
         """4-column packed meta when every field fits its packed range
         (the kernel takes both forms)."""
@@ -380,13 +550,25 @@ class BatchAligner:
         np.minimum(out[:, 3], out[:, 6] + out[:, 7] + 1, out=out[:, 3])
         return out
 
-    def _shapes(self, meta: np.ndarray) -> Tuple[int, int]:
-        """Sticky window maxima (XMAX, YMAX), multiples of 32."""
+    def _shapes(self, meta: np.ndarray) -> Tuple[int, int, int]:
+        """Sticky window maxima (XMAX, YMAX), multiples of 32, and the
+        reference's lane width W = roundup(2b+1, 128)."""
         self._XMAX = max(_round_up(int(meta[:, 6].max(initial=1)), 32), 32,
                          self._XMAX)
         self._YMAX = max(_round_up(int(meta[:, 3].max(initial=1)), 32), 32,
                          self._YMAX)
-        return self._XMAX, self._YMAX
+        self._W = max(_round_up(2 * int(meta[:, 7].max(initial=1)) + 1, 128),
+                      128, self._W)
+        return self._XMAX, self._YMAX, self._W
+
+    def _packed_seg(self, bmax: int) -> int:
+        """Sticky lane width class of the reference's stream kernels: 64
+        (two problems per 128-lane row) while every band is <= 31, else
+        0 (W lanes per problem); it only widens.  It sizes dp_cells, the
+        padded cells of the reference's kernel batch."""
+        seg = 64 if bmax <= PACKED_BAND_MAX and self._seg != 0 else 0
+        self._seg = seg
+        return seg
 
     @staticmethod
     def _pad_meta(meta: np.ndarray, N: int) -> np.ndarray:
@@ -399,30 +581,43 @@ class BatchAligner:
         out[: len(meta)] = meta
         return out
 
+    @staticmethod
+    def _device_rows(meta: np.ndarray) -> np.ndarray:
+        """Indices of the nontrivial problems, ordered by column count
+        (neighbouring kernel rows get similar work).  Empty-flank
+        problems have a known result (score 0, cell (0, 0)) and never
+        reach the device."""
+        idx = np.flatnonzero((meta[:, 6] > 0) & (meta[:, 3] > 0))
+        return idx[np.argsort(meta[idx, 3], kind="stable")]
+
     def _dispatch_forward(self, st: _ChunkState) -> None:
-        """Launch the stream kernel on every nontrivial problem of the
-        chunk and start the copy of its headers to the host."""
+        """Launch the chunk's device pass on every nontrivial problem:
+        the stream kernel (scores and walks; headers start their copy to
+        the host) with the C++ engine, the forward-scores kernel
+        without."""
         meta_all = st.meta_all
-        meta_dev = self._narrow_meta(meta_all)
-        XMAX, YMAX = self._shapes(meta_dev)
-        # empty-flank problems have a known result (score 0, cell
-        # (0, 0)) and never reach the device
-        nontriv = (meta_dev[:, 6] > 0) & (meta_dev[:, 3] > 0)
-        st.fwd_idx = np.flatnonzero(nontriv)
-        # neighbouring kernel rows get similar column counts
-        order = np.argsort(meta_dev[st.fwd_idx, 3], kind="stable")
-        st.fwd_idx = st.fwd_idx[order]
+        narrowing = self._narrowing()
+        meta_dev = self._narrow_meta(meta_all) if narrowing else meta_all
+        XMAX, YMAX, W = self._shapes(meta_dev)
+        st.fwd_idx = self._device_rows(meta_dev)
         sub = meta_dev[st.fwd_idx]
         bmax = int(sub[:, 7].max(initial=1))
-        if bmax > BAND_MAX:
-            raise NotImplementedError(
-                f"band {bmax} > {BAND_MAX} needs the general stream kernel "
-                "(ROADMAP.md Queue 2, item 2); lower narrow_band"
-            )
+        words = self._ref_text()
+        if self.native is None:
+            nb = max(_pow2_bucket(max(len(sub), 1), 128), self._NFWD)
+            self._NFWD = nb
+            meta = self._pad_meta(sub, nb)
+            self.stats.dp_cells += len(meta) * YMAX * W
+            st.fwd = _HostCopy(swg_forward(
+                words, words.shape[0], st.reads_dev,
+                self._upload(self._pack_meta(meta)), XMAX, YMAX, band_max=bmax,
+            ))
+            return
+        seg = self._packed_seg(bmax)
         nb = max(_pow2_bucket(max(len(sub), 1), 128), self._NFWD1)
         self._NFWD1 = nb
         meta = self._pad_meta(sub, nb)
-        self.stats.dp_cells += len(meta) * YMAX * (32 if bmax <= 15 else 64)
+        self.stats.dp_cells += len(meta) * YMAX * (seg or W)
         orig = meta_all[st.fwd_idx]
         # full-band-equivalent cells (the fair GCUPS numerator)
         self.stats.dp_cells_ref += int(
@@ -438,10 +633,10 @@ class BatchAligner:
             _round_up(int((orig[:, 6] + orig[:, 3]).max(initial=1)) + 2, 16),
             self._SMAX, self._SMAX_HOST,
         )
-        words = self._ref_text()
         hdr, st.fwd_streams = swg_stream(
             words, words.shape[0], st.reads_dev,
             self._upload(self._pack_meta(meta)), XMAX, YMAX, self._SMAX,
+            band_max=bmax,
         )
         st.hdr = _HostCopy(hdr)
         inv = np.full(len(meta_all), -1, np.int32)
@@ -449,12 +644,20 @@ class BatchAligner:
         st.inv_rows = inv
 
     def _forward_results(self, st: _ChunkState):
-        """Wait for the headers; -> pid-indexed (score, max_i, max_j).
+        """Wait for the device pass; -> pid-indexed (score, max_i, max_j).
 
-        Certificate failures and flagged walks are recomputed exactly at
-        the original band by the C++ scalar SWG and spliced into the
-        pid-indexed host rows, which are sized for original-band walks."""
+        With the C++ engine, certificate failures and flagged walks are
+        recomputed exactly at the original band by the C++ scalar SWG and
+        spliced into the pid-indexed host rows, which are sized for
+        original-band walks."""
         n = len(st.meta_all)
+        if self.native is None:
+            with self.stats.dsync("arbitrate"):
+                sub = st.fwd.wait()[: len(st.fwd_idx)]
+            st.fwd = None
+            out = np.zeros((n, 3), np.int32)
+            out[st.fwd_idx] = sub[:, :3]
+            return out[:, 0], out[:, 1], out[:, 2]
         with self.stats.dsync("arbitrate"):
             sub = st.hdr.wait()[: len(st.fwd_idx)]
         st.hdr = None
@@ -473,11 +676,162 @@ class BatchAligner:
 
     def _arbitrate_chunk(self, st: _ChunkState) -> None:
         scores, max_i, max_j = self._forward_results(st)
+        if self.native is None:
+            self._arbitrate_chunk_py(st, scores, max_i, max_j)
+            self._dispatch_traceback(st)
+            return
         st.selected_arr, st.pid_list = self.native.arbitrate(
             st.native_ch, scores, max_i, max_j
         )
         self.stats.winners += len(st.pid_list)
         self._dispatch_stream_gather(st)
+
+    def _arbitrate_chunk_py(self, st: _ChunkState, scores, max_i, max_j
+                            ) -> None:
+        """Arbitration on scores and spans only, in Python (reference
+        ``batch.py:898-969``): per seed the genome-vs-transcriptome
+        choice, then the score filters, the multimap range, the overlap
+        filter and the primary; the winners' problem ids go to
+        ``st.pid_list``."""
+        opts = self.opts
+        for task in st.tasks:
+            sL, sR = scores[task.left_pid], scores[task.right_pid]
+            task.score = int(sL) + MATCH_SCORE * task.hit.len + int(sR)
+            l_ye, r_ye = int(max_j[task.left_pid]), int(max_j[task.right_pid])
+            l_xe, r_xe = int(max_i[task.left_pid]), int(max_i[task.right_pid])
+            task.span = (task.hit.ref_idx - l_ye,
+                         task.hit.ref_idx + task.hit.len + r_ye,
+                         task.hit.query_idx - l_xe,
+                         task.hit.query_idx + task.hit.len + r_xe)
+        winner_pids: Dict[int, None] = {}
+        for ri, read in enumerate(st.reads):
+            min_aln_score = st.read_params[ri][0]
+            rtasks = st.per_read_tasks[ri]
+            gx_alns: List[Tuple[GenomeAlignment, _Task]] = []
+            # tasks per seed: the gx task, then its tx tasks
+            i = 0
+            while i < len(rtasks):
+                gx_task = rtasks[i]
+                i += 1
+                tx_tasks = []
+                while (i < len(rtasks) and rtasks[i].kind == "tx"
+                       and rtasks[i].abs_hit == gx_task.abs_hit):
+                    tx_tasks.append(rtasks[i])
+                    i += 1
+                ga, task = self._arbitrate_seed(read, gx_task, tx_tasks)
+                if not opts.intron_mode and ga.aln_type != EXONIC:
+                    continue
+                if (ga.gx_aln.score < opts.min_aln_score
+                        or ga.gx_aln.score < min_aln_score):
+                    continue
+                gx_alns.append((ga, task))
+            max_score = max([min_aln_score] + [g.gx_aln.score for g, _ in gx_alns])
+            gx_alns = [(g, t) for g, t in gx_alns
+                       if g.gx_aln.score >= max_score - opts.multimap_score_range]
+            # overlap filter + primary selection on span-only objects
+            pair_of = {id(g): t for g, t in gx_alns}
+            filtered = filter_overlapping([g for g, _ in gx_alns])
+            filtered.sort(key=lambda a: -a.gx_aln.score)
+            if filtered:
+                filtered[0].primary = True
+            sel = [(g, pair_of[id(g)]) for g in filtered]
+            st.selected.append(sel)
+            for _, t in sel:
+                winner_pids[t.left_pid] = None
+                winner_pids[t.right_pid] = None
+        st.pid_list = list(winner_pids)
+
+    def _arbitrate_seed(self, read, gx_task, tx_tasks):
+        """Genome-vs-transcriptome choice for one seed (reference
+        src/aligner.rs:263-313), spans only."""
+        index = self.index
+        aln_ref, _ = index.idx_to_ref(gx_task.abs_hit.ref_idx)
+        ref_name, strand = aln_ref.name, aln_ref.strand
+        best_tx = None
+        for t in tx_tasks:
+            if best_tx is None or t.score > best_tx.score:
+                best_tx = t
+            if t.score >= len(read) * MATCH_SCORE:
+                break
+        if best_tx is not None and best_tx.score >= gx_task.score:
+            tx = index.txome.txs[best_tx.tx_idx]
+            ys, ye, xs, xe = best_tx.span
+            # trailing soft clip exists iff the query isn't fully consumed
+            gys, gye = lift_tx_span_to_gx(ys, ye, tx,
+                                          trailing_nonref=xe < len(read))
+            chr_aln = _span_to_chr(index, gys, gye, xs, xe, best_tx.score,
+                                   len(read))
+            return GenomeAlignment(gx_aln=chr_aln, aln_type=EXONIC,
+                                   ref_name=ref_name, strand=strand,
+                                   tx_idx=best_tx.tx_idx), best_tx
+        ys, ye, xs, xe = gx_task.span
+        gys, gye = gx_task.seq_start + ys, gx_task.seq_start + ye
+        gene_idxs = index.txome.gene_intervals.find(gys, gye)
+        chr_aln = _span_to_chr(index, gys, gye, xs, xe, gx_task.score, len(read))
+        if len(gene_idxs) == 0:
+            return GenomeAlignment(gx_aln=chr_aln, aln_type=INTERGENIC,
+                                   ref_name=ref_name, strand=strand), gx_task
+        return GenomeAlignment(gx_aln=chr_aln, aln_type=INTRONIC,
+                               ref_name=ref_name, strand=strand,
+                               gene_idx=int(gene_idxs[0])), gx_task
+
+    def _dispatch_traceback(self, st: _ChunkState) -> None:
+        """Walk the winners (without the C++ engine): one launch of the
+        stream kernel in the fused form on the nontrivial winners, rows
+        copied to the host."""
+        if not st.pid_list:
+            return
+        meta_sub = st.meta_all[np.asarray(st.pid_list, np.int64)]
+        st.tb_meta_sub = meta_sub
+        self.stats.winners += len(st.pid_list)
+        XMAX, YMAX, W = self._shapes(st.meta_all)
+        st.tb_idx = self._device_rows(meta_sub)
+        sub = meta_sub[st.tb_idx]
+        bmax = int(sub[:, 7].max(initial=1))
+        seg = self._packed_seg(bmax)
+        nb = max(_pow2_bucket(max(len(sub), 1), 128), self._NTB)
+        self._NTB = nb
+        meta = self._pad_meta(sub, nb)
+        self.stats.dp_cells += len(meta) * YMAX * (seg or W)
+        # walk steps of the batch, sticky
+        self._SMAX = max(
+            _round_up(int((meta_sub[:, 6] + meta_sub[:, 3]).max(initial=1)) + 2,
+                      128),
+            self._SMAX,
+        )
+        words = self._ref_text()
+        st.tb = _HostCopy(swg_stream(
+            words, words.shape[0], st.reads_dev,
+            self._upload(self._pack_meta(meta)), XMAX, YMAX, self._SMAX,
+            band_max=bmax, fused=True,
+        ))
+
+    def _traceback_results(self, st: _ChunkState) -> Dict[int, Alignment]:
+        """Wait for the winners' rows and decode them; -> pid -> the
+        extension's Alignment.  A row the kernel flagged (bad walk) is
+        recomputed by the scalar SWG on the host."""
+        ops_by_pid: Dict[int, Alignment] = {}
+        if not st.pid_list:
+            return ops_by_pid
+        from thermite_tpu.ops.runs import decode_stream_batch
+        from thermite_tpu.ops.swg_ref import SwgExtend
+
+        meta_sub = st.tb_meta_sub
+        with self.stats.dsync("finalize"):
+            sub = st.tb.wait()[: len(st.tb_idx)]
+        st.tb = None
+        out = np.zeros((len(st.pid_list), sub.shape[1]), np.int32)
+        out[st.tb_idx] = sub
+        alns = decode_stream_batch(out, meta_sub[:, 6], meta_sub[:, 3])
+        for k, pid in enumerate(st.pid_list):
+            aln = alns[k]
+            if aln is None:
+                self.stats.stream_fallbacks += 1
+                x, y = self._problem_bytes(st, meta_sub[k])
+                band, xd = int(meta_sub[k, 7]), int(meta_sub[k, 8])
+                aln = SwgExtend(band).extend(x, y, band, xd)
+            ops_by_pid[pid] = aln
+        return ops_by_pid
 
     def _dispatch_stream_gather(self, st: _ChunkState) -> None:
         """Gather the winners' op streams out of the device-resident
@@ -513,8 +867,14 @@ class BatchAligner:
     _ALN_TYPES = (EXONIC, INTRONIC, INTERGENIC)
 
     def _finalize_chunk(self, st: _ChunkState) -> List[List[GenomeAlignment]]:
-        """Decode, stitch and lift the chunk's selected alignments in C++
-        and build the result objects."""
+        """Decode, stitch and lift the chunk's selected alignments (in C++,
+        or in Python without the C++ engine) and build the result
+        objects."""
+        if st.native_ch is None:
+            ops_by_pid = self._traceback_results(st)
+            return [[self._finalize(read, ga, task, ops_by_pid)
+                     for ga, task in st.selected[ri]]
+                    for ri, read in enumerate(st.reads)]
         results: List[List[GenomeAlignment]] = [[] for _ in st.reads]
         if len(st.selected_arr):
             fin_data = self.native.finalize(st.native_ch, self._take_tb(st),
@@ -617,8 +977,14 @@ class BatchAligner:
             tx_idx=task.tx_idx if atype == 0 else None,
             gene_idx=gene if atype == 1 else None,
         )
-        left, right = ops_by_pid[task.left_pid], ops_by_pid[task.right_pid]
-        stitched = stitch(left, right, task.hit, task.ref_len, len(read))
+        return self._finalize(read, ga, task, ops_by_pid)
+
+    def _finalize(self, read, ga, task, ops_by_pid):
+        """Attach the walked ops to a span-only winner: stitch the two
+        flanks around the seed, lift through the transcript's exons, and
+        map to chromosome coordinates."""
+        stitched = stitch(ops_by_pid[task.left_pid], ops_by_pid[task.right_pid],
+                          task.hit, task.ref_len, len(read))
         if ga.aln_type == EXONIC:
             lifted = lift_tx_to_gx(stitched, self.index.txome.txs[task.tx_idx])
             chr_aln = concat_to_chr_aln(self.index, lifted)
@@ -678,3 +1044,17 @@ def _serialize_records(index, recs, results, fmt_bam, strip_tags: bool = False
             out.append(ser(aln_to_sam_record(index, name, seq, qual, aln,
                                              len(alns), i + 1)))
     return b"".join(out)
+
+
+def _span_to_chr(index, gys, gye, xs, xe, score, read_len):
+    """Concatenated span -> chromosome-coordinate span-only Alignment
+    (reference src/aligner.rs:429-449, spans only)."""
+    aln_ref, _ = index.idx_to_ref(gys)
+    if aln_ref.strand:
+        ystart = gys - aln_ref.start_idx
+        yend = gye - aln_ref.start_idx
+    else:
+        ystart = aln_ref.len - (gye - aln_ref.start_idx)
+        yend = aln_ref.len - (gys - aln_ref.start_idx)
+    return Alignment(score=score, ystart=ystart, xstart=xs, yend=yend,
+                     xend=xe, ylen=aln_ref.len, xlen=read_len, operations=[])

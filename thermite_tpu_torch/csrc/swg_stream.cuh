@@ -1,9 +1,11 @@
-// Scalar pieces of the SWG stream kernel (swg_stream.cu) that run the
-// same on the host and the device: meta unpacking, the nibble gather,
-// the direction-plane layout, the per-problem traceback walk with its
-// 2-bit code packing, and the header packing.  Compiled by nvcc for the
-// kernel and by g++ for the host test harness (swg_stream_host.cpp), so
-// this logic is tested on a machine without a GPU.
+// Scalar pieces of the SWG kernels (swg_stream.cu, swg_stream_wide.cu,
+// swg_forward.cu) that run the same on the host and the device: meta
+// unpacking, the nibble gather, the slot class and shared-memory sizing
+// of a launch, the direction-plane layout, the per-problem traceback
+// walk with its 2-bit code packing, and the header packing.  Compiled
+// by nvcc for the kernels and by g++ for the host test harness
+// (swg_stream_host.cpp), so this logic is tested on a machine without a
+// GPU.
 #pragma once
 
 #include <stdint.h>
@@ -77,6 +79,38 @@ __host__ __device__ __forceinline__ int nib_at(const int32_t* words,
   const int sub = (int)(pos - 8 * w);
   w = w < 0 ? 0 : (w >= lw ? lw - 1 : w);
   return (int)(((uint32_t)words[w] >> (4 * sub)) & 0xFu);
+}
+
+// Band slots per lane of a launch: the fewest (a power of two <= 32)
+// whose 32*SLOTS slots cover min(2*band_max + 1, xmax + 1).  Slots past
+// 2b are never computed, nor are slots past xlen <= xmax (a cell needs
+// row <= xlen), and neither is read by a computed slot or by the walk,
+// so no problem of the launch needs more.  0 when none suffices.
+__host__ __device__ inline int slots_for(int band_max, int xmax) {
+  const int need = 2 * band_max + 1 < xmax + 1 ? 2 * band_max + 1 : xmax + 1;
+  for (int s = 1; s <= 32; s *= 2)
+    if (32 * s >= need) return s;
+  return 0;
+}
+
+// Per-warp shared memory of a launch in 32-bit words: direction planes
+// (2*slots words per column 0..ymax), the packed stream (pw words),
+// then the x and y codes as bytes.  The forward kernel passes slots 0
+// and pw 0: codes only.
+__host__ __device__ inline int warp_smem_words(int xmax, int ymax, int pw,
+                                               int slots) {
+  return (ymax + 1) * 2 * slots + pw + (xmax + 3) / 4 + (ymax + 3) / 4;
+}
+
+// Shared memory a block may opt into on sm_90 (227 KB).
+constexpr int SMEM_OPTIN_BYTES = 232448;
+
+// Warps (problems) per block for `words` per warp: up to max_warps,
+// never more than the opt-in shared memory holds; 0 when one warp's
+// share does not fit.
+__host__ __device__ inline int warps_per_block(int words, int max_warps) {
+  const long long fit = SMEM_OPTIN_BYTES / (4LL * words);
+  return (int)(fit < max_warps ? fit : max_warps);
 }
 
 // Direction planes of one problem: column j holds 2*SLOTS words; word

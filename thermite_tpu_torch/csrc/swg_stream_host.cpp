@@ -1,8 +1,9 @@
 // Host build of the scalar pieces of swg_stream.cuh, with a plain C
 // interface for tests/test_torch_kernel_host.py: g++ compiles the same
-// meta unpacking, nibble gather, direction-plane reads, traceback walk,
-// code packing and header packing that the CUDA kernel runs, so they
-// are held against the plain PyTorch version without a GPU.
+// meta unpacking, nibble gather, slot classes and shared-memory sizing,
+// direction-plane reads, traceback walk, code packing and header packing
+// that the CUDA kernels run, so they are held against the plain PyTorch
+// version without a GPU.
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libswg_host.so swg_stream_host.cpp
 
@@ -33,6 +34,18 @@ void thermite_swg_host_nib_at(const int32_t* words, int64_t lw,
   for (int64_t k = 0; k < n; ++k) out[k] = swg::nib_at(words, lw, pos[k]);
 }
 
+int thermite_swg_host_slots_for(int band_max, int xmax) {
+  return swg::slots_for(band_max, xmax);
+}
+
+// -> per-warp shared-memory words; *warps gets the warps per block.
+int thermite_swg_host_smem(int xmax, int ymax, int pw, int slots,
+                           int max_warps, int* warps) {
+  const int words = swg::warp_smem_words(xmax, ymax, pw, slots);
+  *warps = swg::warps_per_block(words, max_warps);
+  return words;
+}
+
 // Walk + header for n problems.  planes: (n, ymax+1, 2*slots) uint32 in
 // the kernel's shared-memory layout; hdr (n, 2) and streams (n, smax/16)
 // are written like the kernel writes them.
@@ -41,16 +54,25 @@ int thermite_swg_host_walk(const uint32_t* planes, int slots, int ymax,
                            const int32_t* mj, const int32_t* band,
                            const uint8_t* cert, int64_t n, int smax,
                            int32_t* hdr, int32_t* streams) {
-  if (slots != 1 && slots != 2) return -1;
+  using Walk = swg::WalkEnd (*)(const uint32_t*, int, int, int, int,
+                                uint32_t*, int);
+  Walk fn;
+  switch (slots) {
+    case 1: fn = swg::walk<1>; break;
+    case 2: fn = swg::walk<2>; break;
+    case 4: fn = swg::walk<4>; break;
+    case 8: fn = swg::walk<8>; break;
+    case 16: fn = swg::walk<16>; break;
+    case 32: fn = swg::walk<32>; break;
+    default: return -1;
+  }
   const int pw = smax / 16;
   const int64_t per = (int64_t)(ymax + 1) * 2 * slots;
   for (int64_t p = 0; p < n; ++p) {
     uint32_t* words = reinterpret_cast<uint32_t*>(streams + p * pw);
     for (int w = 0; w < pw; ++w) words[w] = 0;
-    const uint32_t* pl = planes + p * per;
     const swg::WalkEnd we =
-        slots == 1 ? swg::walk<1>(pl, mi[p], mj[p], band[p], smax, words, pw)
-                   : swg::walk<2>(pl, mi[p], mj[p], band[p], smax, words, pw);
+        fn(planes + p * per, mi[p], mj[p], band[p], smax, words, pw);
     swg::pack_hdr(ms[p], mi[p], mj[p], swg::nsteps_code(we, cert[p] != 0),
                   hdr + 2 * p);
   }

@@ -1,12 +1,13 @@
 """Build the hand-written kernels and the reference's C++ engine at first
 use.
 
-The CUDA kernel (``csrc/swg_stream.cu``) is compiled by ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface and loaded
-with ctypes.  The library lands in ``thermite_tpu_torch/_build/`` (listed
-in ``.gitignore``) under a name keyed by a hash of the sources and flags,
-so a changed source builds anew and an unchanged one loads at once.  A
-failed build raises; nothing falls back.
+Each CUDA kernel source (``csrc/*.cu``) is compiled by ``nvcc`` for
+``sm_90a`` into a shared library of its own with a plain C interface and
+loaded with ctypes; the sources are built in parallel, one ``nvcc`` each.
+The libraries land in ``thermite_tpu_torch/_build/`` (listed in
+``.gitignore``) under names keyed by a hash of the source, the shared
+headers and the flags, so a changed source builds anew and an unchanged
+one loads at once.  A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -16,18 +17,39 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-KERNEL_SOURCES = ("swg_stream.cu", "swg_stream.cuh")
+# kernel library -> its source; every source includes both headers
+KERNELS = {
+    "swg_stream": "swg_stream.cu",
+    "swg_stream_wide": "swg_stream_wide.cu",
+    "swg_forward": "swg_forward.cu",
+}
+HEADERS = ("swg_stream.cuh", "swg_dp.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-_kernel_lib = None
-build_log = ""  # the compiler's report (ptxas registers/spills) of the last build
+_p, _i64, _i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# C signatures of the launch functions (csrc/*.cu, extern "C")
+_LAUNCH = {
+    "swg_stream": ("thermite_swg_stream_launch",
+                   [_p, _i64, _p, _i64, _p, _i32, _i64, _i32, _i32, _i32,
+                    _p, _p, _p]),
+    "swg_stream_wide": ("thermite_swg_stream_wide_launch",
+                        [_p, _i64, _p, _i64, _p, _i32, _i64, _i32, _i32,
+                         _i32, _i32, _p, _p, _p]),
+    "swg_forward": ("thermite_swg_forward_launch",
+                    [_p, _i64, _p, _i64, _p, _i32, _i64, _i32, _i32, _i32,
+                     _p, _p]),
+}
+
+_kernel_libs: dict = {}
+build_log: dict = {}  # library -> the compiler's report (ptxas registers/spills)
 
 
 def _nvcc() -> str:
@@ -42,8 +64,8 @@ def _nvcc() -> str:
 
 def _compile(cmd, out: str, what: str) -> str:
     """Run ``cmd`` writing ``out + '.tmp<pid>'``, then move it in place
-    (a concurrent build never loads a half-written library)."""
-    global build_log
+    (a concurrent build never loads a half-written library); -> the
+    compiler's stderr."""
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
     r = subprocess.run(cmd + ["-o", tmp], capture_output=True, text=True,
@@ -51,34 +73,44 @@ def _compile(cmd, out: str, what: str) -> str:
     if r.returncode != 0:
         raise RuntimeError(f"{what} build failed:\n{' '.join(cmd)}\n{r.stderr}")
     os.replace(tmp, out)
-    build_log = r.stderr
-    return out
+    return r.stderr
 
 
-def build_kernels() -> str:
-    """Compile the CUDA kernel library if needed; -> its path."""
+def _lib_path(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in KERNEL_SOURCES:
-        with open(os.path.join(CSRC, name), "rb") as f:
+    for src in (KERNELS[name], *HEADERS):
+        with open(os.path.join(CSRC, src), "rb") as f:
             h.update(f.read())
-    out = os.path.join(BUILD_DIR, f"libswg_stream_{h.hexdigest()[:16]}.so")
-    if os.path.exists(out):
-        return out
-    cmd = [_nvcc(), *NVCC_FLAGS, os.path.join(CSRC, "swg_stream.cu")]
-    return _compile(cmd, out, "CUDA kernel")
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
-def kernel_lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _kernel_lib
-    if _kernel_lib is None:
-        lib = ctypes.CDLL(build_kernels())
-        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        fn = lib.thermite_swg_stream_launch
+def build_kernels() -> dict:
+    """Compile every kernel library that is missing, all in parallel;
+    -> {library: path}."""
+    paths = {name: _lib_path(name) for name in KERNELS}
+    todo = [name for name, path in paths.items() if not os.path.exists(path)]
+
+    def one(name):
+        cmd = [_nvcc(), *NVCC_FLAGS, os.path.join(CSRC, KERNELS[name])]
+        build_log[name] = _compile(cmd, paths[name], f"CUDA kernel {name}")
+
+    if todo:
+        with ThreadPoolExecutor(len(todo)) as pool:
+            list(pool.map(one, todo))
+    return paths
+
+
+def kernel_lib(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (every library is built on the
+    first call)."""
+    if name not in _kernel_libs:
+        lib = ctypes.CDLL(build_kernels()[name])
+        fn_name, argtypes = _LAUNCH[name]
+        fn = getattr(lib, fn_name)
         fn.restype = ctypes.c_int
-        fn.argtypes = [p, i64, p, i64, p, i32, i64, i32, i32, i32, p, p, p]
-        _kernel_lib = lib
-    return _kernel_lib
+        fn.argtypes = argtypes
+        _kernel_libs[name] = lib
+    return _kernel_libs[name]
 
 
 def native_engine() -> None:
@@ -94,4 +126,4 @@ def native_engine() -> None:
     src = os.path.join(os.path.dirname(_PKG), "csrc", "thermite_native.cpp")
     cmd = [os.environ.get("CXX", "g++"), "-O3", "-march=native", "-std=c++17",
            "-fPIC", "-pthread", "-shared", src]
-    _compile(cmd, native._LIB_PATH, "C++ engine")
+    build_log["native"] = _compile(cmd, native._LIB_PATH, "C++ engine")

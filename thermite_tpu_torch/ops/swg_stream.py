@@ -1,25 +1,32 @@
 """Banded SWG extension with on-device traceback: the packed op stream.
 
-``swg_stream`` is the port of the reference's lane-packed Pallas stream
-kernel (``thermite_tpu/ops/swg_pallas_packed.py::make_packed_stream_call``
-behind ``make_packed_stream_gather_kernel(split=True)``).  Per problem it
-gathers the x window from the nibble-packed read block and the y window
-from the nibble-packed text, runs banded affine-gap Smith-Waterman-Gotoh
-with X-drop, keeps the best score and the first cell that reaches it,
-computes the band-exactness certificate, and walks the traceback into
-2-bit direction codes (backward order, 16 per int32 word).
+``swg_stream`` is the port of the reference's two Pallas stream kernels:
+the lane-packed one for bands up to 31
+(``thermite_tpu/ops/swg_pallas_packed.py::make_packed_stream_call``) and
+the general one for any band (``thermite_tpu/ops/swg_pallas.py::
+make_stream_traceback_kernel``), which give the same rows.  Per problem
+it gathers the x window from the nibble-packed read block and the y
+window from the nibble-packed text, runs banded affine-gap
+Smith-Waterman-Gotoh with X-drop, keeps the best score and the first
+cell that reaches it, computes the band-exactness certificate, and walks
+the traceback into 2-bit direction codes (backward order, 16 per int32
+word).
 
-Outputs, in meta row order:
+Outputs, in meta row order, in the split form:
   hdr     (N, 2) int32 — int16 halves [score | max_i, max_j | nsteps]
   streams (N, SMAX/16) int32 — packed walk codes
+or, with ``fused=True``, the reference's fused rows (N, 4 + SMAX/16):
+the int32 header [score, max_i, max_j, nsteps], then the streams.
 ``nsteps`` is the step count, -1 for a bad walk, and -2-c when the
 certificate failed (the walk is valid at this band but a wider band
 might differ; the batch pipeline recomputes those rows at full band).
 
-For a CUDA tensor the wrapper launches the hand-written kernel
-(``csrc/swg_stream.cu``); for a CPU tensor it runs ``swg_stream_plain``,
-the plain PyTorch version of the same function, which is also the
-referee the card's kernel is held against.
+For a CUDA tensor the wrapper launches a hand-written kernel: bands up
+to 31 ``csrc/swg_stream.cu`` (counted in ``swg_stream.launches``), wider
+bands ``csrc/swg_stream_wide.cu`` through ``swg_stream_wide`` (counted
+there).  For a CPU tensor it runs ``swg_stream_plain``, the plain
+PyTorch version of the same function, which is also the referee the
+card's kernels are held against.
 """
 
 from __future__ import annotations
@@ -47,7 +54,31 @@ from .layout import (
     _WPAD,
 )
 
-BAND_MAX = 31  # 2b+1 <= 63 slots: two band slots per lane of a warp
+PACKED_BAND_MAX = 31  # csrc/swg_stream.cu: at most two band slots per lane
+
+
+def slots_per_lane(band_max: int, XMAX: int) -> int:
+    """Band slots per lane of a warp for a launch: the fewest (a power of
+    two, at most 32) whose 32*SLOTS slots cover min(2*band_max + 1,
+    XMAX + 1).  Slots past 2b are never computed, nor are slots past row
+    xlen <= XMAX, and neither is read by a computed slot or by the walk,
+    so the DP of every problem with xlen <= XMAX is the same at any wider
+    slot count (the reference computes W = roundup(2b+1, 128) lanes).
+    Same rule as ``slots_for`` in csrc/swg_stream.cuh."""
+    need = min(2 * band_max + 1, XMAX + 1)
+    s = 1
+    while 32 * s < need:
+        s *= 2
+    if s > 32:
+        raise ValueError(f"no slot class covers {need} slots (XMAX {XMAX})")
+    return s
+
+
+def stream_slots(band_max: int, XMAX: int) -> int:
+    """Slots per lane of the stream kernel that serves ``band_max``: the
+    general kernel's narrowest class is 4."""
+    s = slots_per_lane(band_max, XMAX)
+    return s if band_max <= PACKED_BAND_MAX else max(s, 4)
 
 
 def meta9(meta: torch.Tensor) -> torch.Tensor:
@@ -104,11 +135,12 @@ def _windows(ref_nib, reads_nib, m9, XMAX: int, YMAX: int):
     return x, y
 
 
-def _forward_plain(x, y, xlen, ylen, band, xdrop, L: int):
+def _forward_plain(x, y, xlen, ylen, band, xdrop, L: int, want_dirs=True):
     """Banded DP over L band slots per problem (slot t = row row0 + t of
     column j, row0 = max(j - band, 0)).
 
-    Returns (ms, mi, mj, cert, dirs) with dirs (N, YMAX+1, L) int8."""
+    Returns (ms, mi, mj, cert, dirs) with dirs (N, YMAX+1, L) int8, or
+    None without ``want_dirs``."""
     dev = x.device
     N, YMAX = y.shape
     i32 = torch.int32
@@ -117,8 +149,10 @@ def _forward_plain(x, y, xlen, ylen, band, xdrop, L: int):
     b2 = 2 * band[:, None]
     D = torch.where(t == 0, 0, torch.where(t <= b2, t * e + o, MIN)).to(i32)
     C = torch.where(t == 0, 0, MIN).to(i32).expand(N, L).clone()
-    dirs = torch.zeros((N, YMAX + 1, L), dtype=torch.int8, device=dev)
-    dirs[:, 0] = torch.where(t <= b2, DIR_INS, DIR_MATCH).to(torch.int8)
+    dirs = None
+    if want_dirs:
+        dirs = torch.zeros((N, YMAX + 1, L), dtype=torch.int8, device=dev)
+        dirs[:, 0] = torch.where(t <= b2, DIR_INS, DIR_MATCH).to(torch.int8)
 
     # x window read at slot t of column j: x[row0 + t - 1], via a padded
     # copy indexed by row0 + t (zero before x[0] and past the window)
@@ -174,12 +208,13 @@ def _forward_plain(x, y, xlen, ylen, band, xdrop, L: int):
         mask = computed & active
         D = torch.where(mask, D_new, D).to(i32)
         C = torch.where(mask, c_val, C).to(i32)
-        dir_new = torch.where(
-            D_new == d_val,
-            torch.where(is_match, DIR_MATCH, DIR_SUBST),
-            torch.where(D_new == c_val, DIR_DEL, DIR_INS),
-        )
-        dirs[:, j] = torch.where(mask, dir_new, DIR_MATCH).to(torch.int8)
+        if want_dirs:
+            dir_new = torch.where(
+                D_new == d_val,
+                torch.where(is_match, DIR_MATCH, DIR_SUBST),
+                torch.where(D_new == c_val, DIR_DEL, DIR_INS),
+            )
+            dirs[:, j] = torch.where(mask, dir_new, DIR_MATCH).to(torch.int8)
 
         D_for_max = torch.where(mask, D_new, MIN)
         band_max = D_for_max.max(1).values
@@ -243,8 +278,8 @@ def _walk_plain(dirs, mi, mj, band, SMAX: int):
 
 
 def swg_stream_plain(ref_nib, ref_lw, reads_nib, meta, XMAX: int, YMAX: int,
-                     SMAX: int):
-    """Plain PyTorch version of the stream kernel, vectorized over
+                     SMAX: int, fused: bool = False):
+    """Plain PyTorch version of the stream kernels, vectorized over
     problems with one tensor dimension for band slots.  Same arguments
     and outputs as ``swg_stream``; runs on any device."""
     _check(ref_nib, ref_lw, reads_nib, meta, XMAX, YMAX, SMAX)
@@ -252,17 +287,16 @@ def swg_stream_plain(ref_nib, ref_lw, reads_nib, meta, XMAX: int, YMAX: int,
     x, y = _windows(ref_nib[:ref_lw], reads_nib, m9, XMAX, YMAX)
     xlen, ylen, band, xdrop = (m9[:, k] for k in (6, 3, 7, 8))
     bmax = int(band.max()) if len(band) else 0
-    if bmax > BAND_MAX:
-        raise ValueError(f"band {bmax} > {BAND_MAX}: the stream kernel "
-                         "serves bands up to 31")
-    L = 32 if bmax <= 15 else 64
+    L = 32 * stream_slots(bmax, XMAX)
     ms, mi, mj, cert, dirs = _forward_plain(x, y, xlen, ylen, band, xdrop, L)
     c, bad, streams = _walk_plain(dirs, mi, mj, band, SMAX)
     ns = torch.where(bad, -1, torch.where(cert, c, -2 - c)).to(torch.int32)
+    if fused:
+        return torch.cat([torch.stack([ms, mi, mj, ns], 1), streams], 1)
     return pack_stream_hdr(ms, mi, mj, ns), streams
 
 
-def _check(ref_nib, ref_lw, reads_nib, meta, XMAX, YMAX, SMAX) -> None:
+def _check(ref_nib, ref_lw, reads_nib, meta, XMAX, YMAX, SMAX=16) -> None:
     for name, tns in (("ref_nib", ref_nib), ("reads_nib", reads_nib),
                       ("meta", meta)):
         if tns.dtype != torch.int32:
@@ -283,40 +317,111 @@ def _check(ref_nib, ref_lw, reads_nib, meta, XMAX, YMAX, SMAX) -> None:
         raise ValueError(f"SMAX must be a positive multiple of 16, got {SMAX}")
 
 
-def swg_stream(ref_nib, ref_lw, reads_nib, meta, XMAX: int, YMAX: int,
-               SMAX: int):
-    """(ref_nib (Lw,) i32, ref_lw, reads_nib (Lr,) i32, meta (N, 4|9) i32)
-    -> (hdr (N, 2) i32, streams (N, SMAX/16) i32).
+def band_max_of(meta: torch.Tensor, band_max) -> int:
+    """The launch's band bound: ``band_max`` when the caller knows it
+    (the batch pipeline does, from its host meta), else the largest band
+    in ``meta`` (a device-to-host read)."""
+    if band_max is not None:
+        return int(band_max)
+    return int(meta9(meta)[:, 7].max()) if meta.shape[0] else 0
 
-    Every problem needs band <= 31, xlen <= XMAX; y columns past YMAX are
-    not computed.  CUDA tensors launch the kernel on the current stream
-    (no synchronisation); CPU tensors run ``swg_stream_plain``."""
+
+def raise_for_launch(err: int, what: str) -> None:
+    if err < 0:
+        raise ValueError(f"{what}: shape not taken by the kernel "
+                         "(shared memory or slot class)")
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
+
+
+def _launch_args(ref_nib, ref_lw, reads_nib, meta):
+    return (ctypes.c_void_p(ref_nib.data_ptr()), ctypes.c_int64(int(ref_lw)),
+            ctypes.c_void_p(reads_nib.data_ptr()),
+            ctypes.c_int64(reads_nib.shape[0]),
+            ctypes.c_void_p(meta.data_ptr()), meta.shape[1],
+            ctypes.c_int64(meta.shape[0]))
+
+
+def _stream_outputs(meta, SMAX):
+    N = meta.shape[0]
+    hdr = torch.empty((N, 2), dtype=torch.int32, device=meta.device)
+    streams = torch.empty((N, SMAX // 16), dtype=torch.int32,
+                          device=meta.device)
+    return hdr, streams
+
+
+def _current_stream(meta):
+    return ctypes.c_void_p(torch.cuda.current_stream(meta.device).cuda_stream)
+
+
+def fuse_rows(hdr: torch.Tensor, streams: torch.Tensor) -> torch.Tensor:
+    """Split outputs -> the fused (N, 4 + SMAX/16) rows: the int16 header
+    halves sign-extended to the int32 header, then the streams."""
+    hdr4 = hdr.view(torch.int16).to(torch.int32).reshape(-1, 4)
+    return torch.cat([hdr4, streams], 1)
+
+
+def swg_stream(ref_nib, ref_lw, reads_nib, meta, XMAX: int, YMAX: int,
+               SMAX: int, band_max=None, fused: bool = False):
+    """(ref_nib (Lw,) i32, ref_lw, reads_nib (Lr,) i32, meta (N, 4|9) i32)
+    -> (hdr (N, 2) i32, streams (N, SMAX/16) i32), or the fused
+    (N, 4 + SMAX/16) rows.
+
+    Every problem needs xlen <= XMAX; y columns past YMAX are not
+    computed.  ``band_max`` bounds every band of ``meta`` (read from it
+    when not given).  CUDA tensors launch a kernel on the current stream
+    (no synchronisation): bands up to 31 the packed kernel, wider ones
+    ``swg_stream_wide``; CPU tensors run ``swg_stream_plain``."""
+    if meta.device.type != "cuda":
+        return swg_stream_plain(ref_nib, ref_lw, reads_nib, meta, XMAX,
+                                YMAX, SMAX, fused)
+    _check(ref_nib, ref_lw, reads_nib, meta, XMAX, YMAX, SMAX)
+    bmax = band_max_of(meta, band_max)
+    if bmax > PACKED_BAND_MAX:
+        hdr, streams = swg_stream_wide(ref_nib, ref_lw, reads_nib, meta,
+                                       XMAX, YMAX, SMAX, bmax)
+    else:
+        from ._build import kernel_lib
+
+        hdr, streams = _stream_outputs(meta, SMAX)
+        if meta.shape[0]:
+            err = kernel_lib("swg_stream").thermite_swg_stream_launch(
+                *_launch_args(ref_nib, ref_lw, reads_nib, meta),
+                XMAX, YMAX, SMAX,
+                ctypes.c_void_p(hdr.data_ptr()),
+                ctypes.c_void_p(streams.data_ptr()), _current_stream(meta),
+            )
+            raise_for_launch(err, "swg_stream")
+            swg_stream.launches += 1
+    return fuse_rows(hdr, streams) if fused else (hdr, streams)
+
+
+swg_stream.launches = 0
+
+
+def swg_stream_wide(ref_nib, ref_lw, reads_nib, meta, XMAX: int, YMAX: int,
+                    SMAX: int, band_max: int):
+    """The general-band stream kernel (``csrc/swg_stream_wide.cu``),
+    split outputs as ``swg_stream``: for any band, with 32*SLOTS band
+    slots per problem (``stream_slots``).  ``swg_stream`` routes bands
+    above 31 here.  CPU tensors run ``swg_stream_plain``."""
     if meta.device.type != "cuda":
         return swg_stream_plain(ref_nib, ref_lw, reads_nib, meta, XMAX,
                                 YMAX, SMAX)
     _check(ref_nib, ref_lw, reads_nib, meta, XMAX, YMAX, SMAX)
     from ._build import kernel_lib
 
-    lib = kernel_lib()
-    N = meta.shape[0]
-    hdr = torch.empty((N, 2), dtype=torch.int32, device=meta.device)
-    streams = torch.empty((N, SMAX // 16), dtype=torch.int32,
-                          device=meta.device)
-    if N == 0:
-        return hdr, streams
-    err = lib.thermite_swg_stream_launch(
-        ctypes.c_void_p(ref_nib.data_ptr()), ctypes.c_int64(int(ref_lw)),
-        ctypes.c_void_p(reads_nib.data_ptr()),
-        ctypes.c_int64(reads_nib.shape[0]),
-        ctypes.c_void_p(meta.data_ptr()), meta.shape[1], ctypes.c_int64(N),
-        XMAX, YMAX, SMAX,
-        ctypes.c_void_p(hdr.data_ptr()), ctypes.c_void_p(streams.data_ptr()),
-        ctypes.c_void_p(torch.cuda.current_stream(meta.device).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"swg_stream kernel launch failed: cudaError {err}")
-    swg_stream.launches += 1
+    hdr, streams = _stream_outputs(meta, SMAX)
+    if meta.shape[0]:
+        err = kernel_lib("swg_stream_wide").thermite_swg_stream_wide_launch(
+            *_launch_args(ref_nib, ref_lw, reads_nib, meta),
+            XMAX, YMAX, SMAX, int(band_max),
+            ctypes.c_void_p(hdr.data_ptr()),
+            ctypes.c_void_p(streams.data_ptr()), _current_stream(meta),
+        )
+        raise_for_launch(err, "swg_stream_wide")
+        swg_stream_wide.launches += 1
     return hdr, streams
 
 
-swg_stream.launches = 0
+swg_stream_wide.launches = 0

@@ -4,12 +4,12 @@
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py                 # every phase
-    python3 chip_smoke.py --kernels-only  # phases 1, 2, 2b and 2c
+    python3 chip_smoke.py --kernels-only  # phases 1, 2, 2b, 2c and 2d
 
 Phases, each printed with its own timing; any failure exits non-zero
 before the result lines are printed:
 
-1. require CUDA; print the card's name and power limit; build the three
+1. require CUDA; print the card's name and power limit; build the four
    CUDA kernels (one nvcc each, in parallel, sm_90a) and the C++ host
    engine (g++); print the registers and spills of every kernel.
 2. swg_stream's packed kernel (bands <= 31) == swg_stream_plain
@@ -25,6 +25,12 @@ before the result lines are printed:
 2c. the forward-scores kernel (swg_forward) == swg_forward_plain,
    bit-exact, on the same kinds of shapes, with both times at the
    full-band chunk shape.
+2d. the run-length traceback kernel (swg_traceback, swg_traceback_dense)
+   == its plain versions, bit-exact: gather fuzz shapes for every slot
+   class in both meta forms, dense shapes (bands above XMAX among them),
+   RMAX 1, 4, 24 and 64 with overflow rows and rows of exactly RMAX runs,
+   and the full-band chunk shape (65536 rows, XMAX 96, YMAX 160, band 60,
+   RMAX 24), with both times.
 3. syn45 in memory: a 45 Mbp synthetic spliced chromosome, indexed, and
    49152 truth reads through BatchAligner(device="cuda")
    .align_batch_emit(fmt_bam=True); asserts the packed kernel ran once
@@ -40,8 +46,25 @@ before the result lines are printed:
    equals the full-band scalar SWG of the C++ engine (native.patch_rows).
 5. oracle referee: the SAM records of the first 200 reads equal the
    reference OracleAligner's through the reference SAM writers.
+3d. paired syn45: 24576 FR pairs of 90 bp mates from 300 bp fragments
+   (bench.py:138-166) through align_paired_emit to BAM; asserts the
+   packed kernel ran once per chunk or more, no chunk fell back to
+   Python and more than 90% of primary records are proper pairs; reads/s
+   (both mates) over 5 runs; the first 2000 pairs and a mixed set (junk
+   and rescuable mates, rescue on) equal the referee: align_batch on the
+   interleaved mates, pair_records and the Python writers.
+3e. the cpp engine (CppAligner): the first 4096 reads' BAM and the first
+   2000 pairs' BAM equal the batch path's; reads/s on the 49152 reads at
+   1 thread and at every core (the same-host C++ baseline).
+4b. kernel 4 on its own path, the differential check: the phase 4 chunk
+   at its original band (60) through the run-length traceback kernel
+   (RMAX 24); every row with nruns >= 0 decodes to kernel 2's decoded
+   stream row, 2000 sampled rows to the scalar oracle SwgExtend.
 6. the user entry points: the index saved and loaded, and the port's CLI
-   aligning 2000 reads to SAM, equal to the in-memory emit.
+   aligning 2000 reads to SAM, equal to the in-memory emit; the CLI with
+   --paired and with --engine cpp, two host shards joined by merge, and
+   the wrapper's record surfaces, each equal to its in-memory
+   counterpart.
 
 The last lines are one JSON object of kernel records and one JSON object
 naming the device.  Nothing of JAX is imported.
@@ -321,6 +344,145 @@ def phase_kernel_forward(dev, cases):
     return out
 
 
+def dense_problems(seed, n, band_lo, band_hi, XMAX, YMAX, runs_near):
+    """Kernel 4's dense inputs (the reference kernel's own arrays): y a
+    random ACGT window and x, one in five, unrelated; else its prefix
+    with substitutions at a rate drawn per problem from [0, 0.3) (so run
+    counts spread from 1 to hundreds) and a few indels; or, one in four,
+    with k substitutions five bases apart from base 0 or 2 (2k or 2k+1
+    runs), k near runs_near / 2.  Bands from [band_lo, band_hi], X-drops
+    up to 100.  -> (x (n, XW) pre-shifted, y (n, YMAX), params (n, 4))
+    uint8/uint8/int32 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    rot = np.zeros(256, np.uint8)  # a base -> another base
+    rot[acgt] = np.frombuffer(b"CGTA", np.uint8)
+    XW = max(2 * band_hi + 1, XMAX + 1)
+    x = np.zeros((n, XW), np.uint8)
+    y = np.zeros((n, YMAX), np.uint8)
+    params = np.zeros((n, 4), np.int32)
+    for k in range(n):
+        band = int(rng.integers(band_lo, band_hi + 1))
+        xlen = int(rng.integers(1, XMAX + 1))
+        mode = rng.random()
+        if mode < 0.25:
+            nsub = int(rng.integers(max(runs_near // 2 - 2, 1), runs_near // 2 + 3))
+            xlen = min(max(xlen, 5 * nsub + 3), XMAX)
+        ylen = int(min(xlen + rng.integers(0, 40), YMAX))
+        yw = rng.choice(acgt, ylen)
+        if mode < 0.25:
+            xw = np.resize(yw, xlen).copy()
+            pos = np.arange(int(rng.integers(0, 2)) * 2, xlen - 1, 5)[:nsub]
+            xw[pos] = rot[xw[pos]]
+        elif mode < 0.45:
+            xw = rng.choice(acgt, xlen)
+        else:
+            xw = np.resize(yw, xlen).copy()
+            sub = rng.random(xlen) < rng.random() * 0.3
+            xw[sub] = rng.choice(acgt, int(sub.sum()))
+            for _ in range(int(rng.integers(0, 3))):
+                c = int(rng.integers(0, xlen))
+                xw = np.concatenate([xw[:c], rng.choice(acgt, 3), xw[c:]])[:xlen]
+        x[k, 1 : 1 + xlen] = xw
+        y[k, :ylen] = yw
+        params[k] = (xlen, ylen, band, int(rng.integers(1, 101)))
+    return x, y, params
+
+
+def traceback_cases():
+    """(name, form, inputs, XMAX, YMAX, RMAX) of phase 2d: gather fuzz
+    shapes for every slot class in both meta forms, dense shapes (bands
+    above XMAX among them), RMAX 1, 4, 24 and 64, and the full-band
+    chunk shape (65536 rows, XMAX 96, YMAX 160, band 60, RMAX 24)."""
+    from thermite_tpu_torch.ops.layout import pack_meta_host
+
+    gather = [  # name, seed, n, band_min, band_max, XMAX, YMAX, RMAX
+        ("fuzz band<=15 (1 slot)", 20, 4096, 0, 15, 64, 96, 24),
+        ("fuzz band 16-31 (2 slots)", 21, 4096, 16, 31, 64, 96, 4),
+        ("fuzz band 32-63 (4 slots)", 22, 4096, 32, 63, 64, 96, 64),
+        ("fuzz band 64-127 (8 slots)", 23, 2048, 64, 127, 128, 192, 1),
+        ("fuzz band 128-255 (16 slots, windows 512)", 24, 1024, 128, 255,
+         512, 512, 24),
+        ("fuzz band 256-511 (32 slots, windows 512)", 25, 512, 256, 511,
+         512, 512, 4),
+        ("band>XMAX (XMAX 96)", 26, 4096, 97, 1023, 96, 160, 24),
+    ]
+    cases = []
+    for name, seed, n, lo, hi, xm, ym, rmax in gather:
+        t, r, m, _, _ = fuzz_problems(seed, n, hi, xm, ym, band_min=lo)
+        for form, mm in (("9-col", m), ("4-col", pack_meta_host(m))):
+            cases.append((f"{name} {form}", "gather", (t, r, mm), xm, ym, rmax))
+    dense = [  # name, seed, n, band_min, band_max, XMAX, YMAX, RMAX
+        ("dense band<=31", 30, 4096, 0, 31, 128, 160, 64),
+        ("dense band>XMAX (XMAX 96)", 31, 2048, 97, 400, 96, 160, 24),
+        ("dense windows 512 (32 slots)", 32, 1024, 256, 600, 512, 512, 64),
+        ("dense band<=15", 33, 4096, 0, 15, 96, 128, 4),
+    ]
+    for name, seed, n, lo, hi, xm, ym, rmax in dense:
+        cases.append((name, "dense",
+                      dense_problems(seed, n, lo, hi, xm, ym, rmax),
+                      xm, ym, rmax))
+    t, r, m, xm, ym = chunk_problems(9, 65536, wide=60, narrow=60)
+    cases.append(("full-band chunk shape (65536 rows, band 60, RMAX 24)",
+                  "gather", (t, r, pack_meta_host(m)), xm, ym, 24))
+    return cases
+
+
+def phase_kernel_traceback(dev):
+    """Kernel 4 (swg_traceback, swg_traceback_dense) == its plain
+    versions, bit-exact, on every case; for each RMAX both overflow rows
+    (-1) and rows with exactly RMAX runs occur.  -> (worst max_abs_err,
+    (ms, plain_ms) at the chunk shape)."""
+    import torch
+
+    from thermite_tpu_torch.ops.swg_stream import meta9
+    from thermite_tpu_torch.ops.swg_traceback import (
+        swg_traceback,
+        swg_traceback_dense,
+        swg_traceback_dense_plain,
+        swg_traceback_plain,
+    )
+
+    worst, timing, seen = 0, (None, None), {}
+    launches = swg_traceback.launches + swg_traceback_dense.launches
+    cases = traceback_cases()
+    for name, form, inputs, xm, ym, rmax in cases:
+        if form == "gather":
+            words, rnib, mt = _to_dev(*inputs, dev)
+            bmax = int(meta9(torch.from_numpy(np.ascontiguousarray(inputs[2])))
+                       [:, 7].max())
+            args = (words, words.shape[0], rnib, mt, xm, ym, rmax)
+            rows = mt.shape[0]
+            kernel, plain = swg_traceback, swg_traceback_plain
+        else:
+            args = tuple(torch.from_numpy(a).to(dev) for a in inputs) + (
+                xm, ym, rmax)
+            bmax = int(inputs[2][:, 2].max())
+            rows = len(inputs[2])
+            kernel, plain = swg_traceback_dense, swg_traceback_dense_plain
+        nbad, err, ms, plain_ms, got = compare_kernel(
+            args, reps=20 if rows == 65536 else 0,
+            kernel=functools.partial(kernel, band_max=bmax), plain=plain)
+        timing = (ms, plain_ms) if ms is not None else timing
+        nr = got[:, 3]
+        over, exact = int((nr == -1).sum()), int((nr == rmax).sum())
+        s = seen.setdefault(rmax, [0, 0])
+        s[0] += over
+        s[1] += exact
+        t_ms = f", kernel {ms:.4f} ms, plain {plain_ms:.1f} ms" if ms else ""
+        log(f"  {name}: {len(got)} rows, XMAX {xm} YMAX {ym} RMAX {rmax}, "
+            f"nruns -1: {over}, == RMAX: {exact}, max nruns {nr.max()}; "
+            f"{nbad} differ, max_abs_err {err}{t_ms}")
+        check(nbad == 0, f"kernel 4 != plain on {name}")
+        worst = max(worst, err)
+    for rmax, (over, exact) in sorted(seen.items()):
+        check(over > 0 and exact > 0,
+              f"RMAX {rmax}: {over} overflow rows, {exact} rows of RMAX runs")
+    check(swg_traceback.launches + swg_traceback_dense.launches - launches
+          >= len(cases), "kernel 4 did not launch on every case")
+    return worst, timing
+
+
 def _bam_primary_flags(raw: bytes) -> np.ndarray:
     """FLAG of every primary record in a blob of BAM records."""
     flags, off = [], 0
@@ -350,17 +512,18 @@ def read_launches() -> dict:
             "swg_forward": swg_forward.launches}
 
 
-def timed_runs(aligner, recs, first_s):
-    """Four more runs of the batch after one of ``first_s`` seconds;
-    logs the five reads/s and returns their median."""
+def timed_runs(run_batch, n_reads, first_s):
+    """Four more runs of ``run_batch()`` (one batch of ``n_reads``
+    reads, synchronized) after one of ``first_s`` seconds; logs the five
+    reads/s and returns their median."""
     import torch
 
-    rates = [len(recs) / first_s]
+    rates = [n_reads / first_s]
     for _ in range(4):
         t = time.perf_counter()
-        aligner.align_batch_emit(recs, True)
+        run_batch()
         torch.cuda.synchronize()
-        rates.append(len(recs) / (time.perf_counter() - t))
+        rates.append(n_reads / (time.perf_counter() - t))
     med = float(np.median(rates))
     log("  reads/s over 5 runs of the batch: "
         + " ".join(f"{r:.1f}" for r in rates) + f"; median {med:.1f}")
@@ -417,7 +580,7 @@ def phase_syn45(tmp):
     check(stats.chunks >= 1 and launches["swg_stream"] >= stats.chunks,
           f"{launches} kernel launches for {stats.chunks} chunks")
     check(mapped > 0.9, f"only {100 * mapped:.2f}% of reads mapped")
-    timed_runs(aligner, recs, wall)
+    timed_runs(lambda: aligner.align_batch_emit(recs, True), len(recs), wall)
     _profile_run(aligner, recs)
     return index, opts, aligner, recs, warm, raw, launches["swg_stream"]
 
@@ -451,7 +614,7 @@ def phase_full_band(index, opts, recs, warm, raw_narrow):
     check(launches["swg_stream_wide"] >= stats.chunks >= 1,
           f"{launches} kernel launches for {stats.chunks} chunks")
     check(launches["swg_stream"] == 0, "the packed kernel ran at full band")
-    timed_runs(aligner, recs, wall)
+    timed_runs(lambda: aligner.align_batch_emit(recs, True), len(recs), wall)
     return launches["swg_stream_wide"]
 
 
@@ -568,7 +731,230 @@ def phase_cpp_referee(aligner, recs):
         f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
     check(nbad == 0, "kernel != plain on the syn45 chunk")
     aligner.native.free_chunk(st.native_ch)
-    return err, ms, plain_ms
+    st.native_ch = None
+    return err, ms, plain_ms, st
+
+
+def phase_traceback_path(aligner, st):
+    """Kernel 4 on its own path, the differential check: the phase 4
+    chunk's nontrivial problems at their original band (60), through the
+    run-length traceback kernel (RMAX 24) and the general-band stream
+    kernel (fused rows).  Every row with nruns >= 0 decodes to the stream
+    walk's Alignment, and 2000 sampled rows to the scalar oracle's.
+    -> the kernel's launches in this run."""
+    import torch
+
+    from thermite_tpu.ops.runs import decode_runs_one, decode_stream_batch
+    from thermite_tpu.ops.swg_ref import SwgExtend
+    from thermite_tpu_torch.ops.swg_stream import swg_stream
+    from thermite_tpu_torch.ops.swg_traceback import swg_traceback
+
+    def up32(v):
+        return 32 * ((int(v) + 31) // 32)
+
+    sub = st.meta_all[st.fwd_idx]
+    XMAX, YMAX = up32(sub[:, 6].max()), up32(sub[:, 3].max())
+    SMAX = 16 * ((int((sub[:, 6] + sub[:, 3]).max()) + 2 + 15) // 16)
+    bmax = int(sub[:, 7].max())
+    meta = aligner._upload(aligner._pack_meta(sub))
+    words = aligner._ref_text()
+    torch.cuda.synchronize()
+    swg_traceback.launches = 0
+    t0 = time.perf_counter()
+    out, runs = swg_traceback(words, words.shape[0], st.reads_dev, meta, XMAX,
+                              YMAX, 24, band_max=bmax)
+    torch.cuda.synchronize()
+    k_ms = (time.perf_counter() - t0) * 1e3
+    launches = swg_traceback.launches
+    fused = swg_stream(words, words.shape[0], st.reads_dev, meta, XMAX, YMAX,
+                       SMAX, band_max=bmax, fused=True).cpu().numpy()
+    out, runs = out.cpu().numpy(), runs.cpu().numpy()
+    check((out[:, :3] == fused[:, :3]).all(),
+          "kernel 4's scores and best cells differ from kernel 2's")
+    xlen, ylen = sub[:, 6], sub[:, 3]
+    stream = decode_stream_batch(fused, xlen, ylen)
+    ok = np.flatnonzero(out[:, 3] >= 0)
+    alns = {}
+    differ = 0
+    for k in ok.tolist():
+        alns[k] = decode_runs_one(runs[k], int(out[k, 3]), int(out[k, 0]),
+                                  int(out[k, 1]), int(out[k, 2]),
+                                  int(xlen[k]), int(ylen[k]))
+        differ += alns[k] != stream[k]
+    sample = np.random.default_rng(0).choice(ok, min(2000, len(ok)),
+                                             replace=False)
+    t1 = time.perf_counter()
+    oracle_differ = 0
+    for k in sample.tolist():
+        x, y = aligner._problem_bytes(st, sub[k])
+        band, xd = int(sub[k, 7]), int(sub[k, 8])
+        oracle_differ += alns[k] != SwgExtend(band).extend(x, y, band, xd)
+    log(f"  chunk at full band: {len(sub)} problems, XMAX {XMAX} YMAX {YMAX} "
+        f"RMAX 24 (stream SMAX {SMAX}); kernel 4 launches {launches}, "
+        f"{k_ms:.3f} ms wall with sync; nruns = -1 rows: "
+        f"{len(sub) - len(ok)}; rows with nruns >= 0: {len(ok)}, decoded "
+        f"!= kernel 2's decoded stream: {differ}; {len(sample)} sampled "
+        f"rows != SwgExtend: {oracle_differ} "
+        f"(oracle {time.perf_counter() - t1:.1f} s)")
+    check(launches >= 1, "kernel 4 did not launch on its path")
+    check(differ == 0, f"{differ} decoded runs differ from kernel 2's streams")
+    check(oracle_differ == 0, f"{oracle_differ} sampled rows differ from "
+          "the scalar oracle")
+    return launches
+
+
+def paired_workload(index, n_pairs, seed=51):
+    """The paired workload of bench.py:138-166: FR pairs of 90 bp mates
+    from 300 bp fragments of the first chromosome, quality I."""
+    from thermite_tpu.io.fastx import revcomp
+
+    ref = index.refs[0]
+    chrom = index.seq[ref.start_idx : ref.end_idx - 1]
+    rng = np.random.default_rng(seed)
+    q = b"I" * 90
+    pairs = []
+    for i in range(n_pairs):
+        p = int(rng.integers(0, len(chrom) - 300))
+        frag = chrom[p : p + 300]
+        pairs.append(((b"p%d" % i, frag[:90], q),
+                      (b"p%d" % i, revcomp(frag[-90:]), q)))
+    return pairs
+
+
+def mixed_pairs(index, n=240, seed=11):
+    """tests/test_paired_emit.py::make_mixed_pairs on this genome: FR
+    pairs, every sixth with a junk mate (unmapped, not rescuable), every
+    sixth with a mate mutated at every 15th base (no seed, rescuable),
+    and one pair of two junk reads."""
+    from thermite_tpu.io.fastx import revcomp
+
+    ref = index.refs[0]
+    chrom = index.seq[ref.start_idx : ref.end_idx - 1]
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    rot = {65: 67, 67: 71, 71: 84, 84: 65}
+    q = b"I" * 90
+    pairs = []
+    for i in range(n):
+        p = int(rng.integers(0, len(chrom) - 300))
+        frag = chrom[p : p + 300]
+        r1, r2 = frag[:90], revcomp(frag[-90:])
+        if i % 2:
+            r1, r2 = r2, r1
+        if i % 6 == 3:
+            r2 = rng.choice(acgt, 90).tobytes()
+        elif i % 6 == 5:
+            r2 = bytes(rot.get(b, 65) if k >= 10 and (k - 10) % 15 == 0 else b
+                       for k, b in enumerate(r2))
+        pairs.append(((b"m%d" % i, r1, q), (b"m%d" % i, r2, q)))
+    pairs.append(((b"junkpair", rng.choice(acgt, 90).tobytes(), q),
+                  (b"junkpair", rng.choice(acgt, 90).tobytes(), q)))
+    return pairs
+
+
+def paired_referee(index, aligner, pairs, rescue_opts) -> bytes:
+    """tests/test_paired_emit.py:82-103 on the card: the port's
+    align_batch on the interleaved mates, then pair_records and the
+    Python writers."""
+    from thermite_tpu.align.paired import pair_records
+    from thermite_tpu.io.bam import encode_bam_record
+    from thermite_tpu.io.sam import unique_refs
+    from thermite_tpu_torch.align.paired import _Rec
+
+    res = aligner.align_batch([m[1] for pair in pairs for m in pair])
+    ref_ids = {n: i for i, (n, _) in enumerate(unique_refs(index))}
+    return b"".join(
+        encode_bam_record(rec, ref_ids)
+        for k, (r1, r2) in enumerate(pairs)
+        for rec in pair_records(index, _Rec(*r1), _Rec(*r2), res[2 * k],
+                                res[2 * k + 1], 1000, rescue_opts=rescue_opts))
+
+
+def _paired_counters(stats):
+    return {k: getattr(stats, k, 0)
+            for k in ("emit_cpp_chunks", "spliced_pairs", "emit_py_chunks")}
+
+
+def phase_paired(index, opts, aligner):
+    """The paired syn45 workload through align_paired_emit (BAM): counted
+    launches, proper pairs, reads/s (both mates) over 5 runs; the first
+    2000 pairs and a mixed set (junk and rescuable mates, rescue on)
+    equal the referee.  -> (pairs, BAM of the first 2000 pairs)."""
+    import torch
+
+    pairs = paired_workload(index, N_READS // 2)
+    aligner.align_paired_emit(pairs[:1024], True)  # warm-up
+    torch.cuda.synchronize()
+    aligner.stats.reset()
+    for k in _paired_counters(aligner.stats):
+        setattr(aligner.stats, k, 0)
+    reset_launches()
+    t0 = time.perf_counter()
+    raw = aligner.align_paired_emit(pairs, True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    stats = aligner.stats
+    counters = _paired_counters(stats)
+    flags = _bam_primary_flags(raw)
+    proper = float(np.mean((flags & 2) != 0)) if len(flags) else 0.0
+    log(f"  paired: {len(pairs)} pairs ({2 * len(pairs)} reads), "
+        f"{stats.chunks} chunks, launches {launches}, {counters}, "
+        f"{len(raw)} BAM bytes, primary records {len(flags)}, proper "
+        f"pairs (0x2) {100 * proper:.2f}%, cert patches {stats.cert_patches}, "
+        f"wall {wall:.3f} s = {2 * len(pairs) / wall:.1f} reads/s")
+    log(stats.report())
+    check(len(flags) == 2 * len(pairs),
+          f"{len(flags)} primary records for {2 * len(pairs)} reads")
+    check(launches["swg_stream"] >= stats.chunks >= 1,
+          f"{launches} kernel launches for {stats.chunks} chunks")
+    check(counters["emit_py_chunks"] == 0, "a paired chunk fell back to Python")
+    check(proper > 0.9, f"only {100 * proper:.2f}% proper pairs")
+    timed_runs(lambda: aligner.align_paired_emit(pairs, True), 2 * len(pairs),
+               wall)
+
+    sub = pairs[:2000]
+    got_sub = aligner.align_paired_emit(sub, True)
+    same = got_sub == paired_referee(index, aligner, sub, opts)
+    mixed = mixed_pairs(index)
+    before = _paired_counters(aligner.stats)["spliced_pairs"]
+    got_mixed = aligner.align_paired_emit(mixed, True)
+    spliced = _paired_counters(aligner.stats)["spliced_pairs"] - before
+    same_mixed = got_mixed == paired_referee(index, aligner, mixed, opts)
+    log(f"  referee (align_batch + pair_records + Python writers): first "
+        f"2000 pairs equal: {same}; {len(mixed)} mixed pairs equal: "
+        f"{same_mixed}, spliced (rescue) pairs {spliced}")
+    check(same, "paired BAM differs from the referee on the first 2000 pairs")
+    check(same_mixed and spliced >= 2,
+          "paired BAM differs from the referee on the mixed pairs")
+    return pairs, got_sub
+
+
+def phase_cpp(index, opts, aligner, recs, pairs, paired_sub):
+    """The port's CppAligner: phase 3's BAM bytes on the first 4096
+    reads at N threads, the paired BAM of phase 3d on 2000 pairs, and
+    reads/s on the 49152 reads at 1 thread and at N threads (the
+    same-host C++ baseline)."""
+    from thermite_tpu_torch.align.cpu import CppAligner
+
+    n = os.cpu_count() or 1
+    cpp_n = CppAligner(index, opts, threads=n)
+    cpp_1 = CppAligner(index, opts, threads=1)
+    sub = recs[:4096]
+    same = cpp_n.align_records(sub, True) == aligner.align_batch_emit(sub, True)
+    same_p = cpp_n.align_records_paired(pairs[:2000], True) == paired_sub
+    log(f"  CppAligner at {n} threads: first 4096 reads' BAM == batch path: "
+        f"{same}; 2000 pairs' BAM == phase 3d: {same_p}")
+    check(same and same_p, "the cpp engine's BAM differs from the batch path")
+    for cpp in (cpp_1, cpp_n):
+        rates = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            cpp.align_records(recs, True)
+            rates.append(len(recs) / (time.perf_counter() - t0))
+        log(f"  cpp engine, {cpp.threads} thread(s), {len(recs)} reads: "
+            f"reads/s " + " ".join(f"{r:.1f}" for r in rates)
+            + f"; median {float(np.median(rates)):.1f}")
 
 
 def phase_oracle(index, opts, aligner, recs):
@@ -614,6 +1000,65 @@ def phase_cli(index, tmp, recs):
     with open(out, "rb") as f:
         got = f.read()
     return got, t1 - t0, t2 - t1, rc, build_sam_header(index).encode()
+
+
+def phase_entry_points(opts, aligner, tmp, recs, pairs, header, single_sam):
+    """The other entry points on the phase 6 artifact, 2000 reads or
+    pairs each, against their in-memory counterparts: the CLI with
+    --paired, with --engine cpp, two host shards joined by merge (== the
+    single CLI run), and the wrapper's two record surfaces."""
+    from thermite_tpu.testing.synth import write_fastq
+    from thermite_tpu_torch.cli import main as cli_main
+    from thermite_tpu_torch.wrapper import ThermiteAligner
+
+    art = os.path.join(tmp, "syn45.tai.npz")
+    flags = ["-a", "-k", "20", "-s", "0", "--intron-mode"]
+    fq = os.path.join(tmp, "reads.fq")
+    sub, psub = recs[:2000], pairs[:2000]
+    fq1, fq2 = os.path.join(tmp, "r1.fq"), os.path.join(tmp, "r2.fq")
+    write_fastq([(m[0].decode(), m[1]) for m, _ in psub], fq1)
+    write_fastq([(m[0].decode(), m[1]) for _, m in psub], fq2)
+
+    def cli(out, *args):
+        t0 = time.perf_counter()
+        rc = cli_main(["align", art, *args, "-o", out, *flags])
+        with open(out, "rb") as f:
+            return rc, f.read(), time.perf_counter() - t0
+
+    results = {}
+    rc, got, s = cli(os.path.join(tmp, "paired.sam"), fq1, fq2, "--paired")
+    results["CLI --paired"] = (rc, got == header + aligner.align_paired_emit(
+        psub, False), s)
+    rc, got, s = cli(os.path.join(tmp, "cpp.sam"), fq, "--engine", "cpp")
+    results["CLI --engine cpp"] = (rc, got == single_sam, s)
+    shard_out = os.path.join(tmp, "sharded.sam")
+    t0 = time.perf_counter()
+    rcs = [cli_main(["align", art, fq, "-o", shard_out, *flags, "--num-hosts",
+                     "2", "--host-id", h]) for h in ("0", "1")]
+    merged = os.path.join(tmp, "merged.sam")
+    rcs.append(cli_main(["merge", "-o", merged, shard_out + ".shard000",
+                         shard_out + ".shard001"]))
+    with open(merged, "rb") as f:
+        results["2 host shards + merge"] = (max(rcs), f.read() == single_sam,
+                                            time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    w = ThermiteAligner(art, device="cuda")
+    w.set_opts(opts)
+    names, seqs, quals = ([r[k] for r in sub] for k in range(3))
+    same = w.align_reads_records(names, seqs, quals) == \
+        aligner.align_batch_emit(sub, False, strip_tags=True)
+    results["wrapper align_reads_records"] = (0, same, time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    same = w.align_read_pairs_records(
+        [m[0] for m, _ in psub], [m[1] for m, _ in psub],
+        [m[2] for m, _ in psub], [m[1] for _, m in psub],
+        [m[2] for _, m in psub]) == aligner.align_paired_emit(
+            psub, False, strip_tags=True)
+    results["wrapper align_read_pairs_records"] = (0, same,
+                                                   time.perf_counter() - t0)
+    for name, (rc, same, s) in results.items():
+        log(f"  {name}: rc {rc}, == in-memory: {same} ({s:.1f} s)")
+        check(rc == 0 and same, f"{name} differs from its in-memory counterpart")
 
 
 def run(kernels_only: bool = False) -> dict:
@@ -663,7 +1108,14 @@ def run(kernels_only: bool = False) -> dict:
     log(f"phase 2c done in {time.perf_counter() - t:.1f} s")
     del cases
 
-    launches = {"swg_stream": None, "swg_stream_wide": None, "swg_forward": None}
+    t = time.perf_counter()
+    log("phase 2d: run-length traceback kernel vs its plain versions "
+        "(bit-exact)")
+    worst4, (ms4, plain_ms4) = phase_kernel_traceback(dev)
+    log(f"phase 2d done in {time.perf_counter() - t:.1f} s")
+
+    launches = {"swg_stream": None, "swg_stream_wide": None,
+                "swg_forward": None, "swg_traceback": None}
     err = ms = plain_ms = None
     if not kernels_only:
         os.makedirs(os.path.join(ROOT, "data", "out"), exist_ok=True)
@@ -688,9 +1140,27 @@ def run(kernels_only: bool = False) -> dict:
             log(f"phase 3c done in {time.perf_counter() - t:.1f} s")
 
             t = time.perf_counter()
+            log(f"phase 3d: paired syn45, {N_READS // 2} FR pairs "
+                "(BatchAligner.align_paired_emit, BAM)")
+            pairs, paired_sub = phase_paired(index, opts, aligner)
+            log(f"phase 3d done in {time.perf_counter() - t:.1f} s")
+
+            t = time.perf_counter()
+            log("phase 3e: the cpp engine (CppAligner)")
+            phase_cpp(index, opts, aligner, recs, pairs, paired_sub)
+            log(f"phase 3e done in {time.perf_counter() - t:.1f} s")
+
+            t = time.perf_counter()
             log("phase 4: C++ full-band referee on one syn45 chunk")
-            err, ms, plain_ms = phase_cpp_referee(aligner, recs)
+            err, ms, plain_ms, st = phase_cpp_referee(aligner, recs)
             log(f"phase 4 done in {time.perf_counter() - t:.1f} s")
+
+            t = time.perf_counter()
+            log("phase 4b: kernel 4 on its path, the phase 4 chunk at full "
+                "band against kernel 2 and the scalar oracle")
+            launches["swg_traceback"] = phase_traceback_path(aligner, st)
+            del st
+            log(f"phase 4b done in {time.perf_counter() - t:.1f} s")
 
             t = time.perf_counter()
             log(f"phase 5: oracle referee on the first {N_ORACLE} reads")
@@ -705,6 +1175,7 @@ def run(kernels_only: bool = False) -> dict:
                 f"rc {rc}, CLI SAM == in-memory emit: {got == want}")
             check(rc == 0 and got == want,
                   "CLI SAM differs from the in-memory emit")
+            phase_entry_points(opts, aligner, tmp, recs, pairs, header, got)
             log(f"phase 6 done in {time.perf_counter() - t:.1f} s")
 
     def record(name, source, replaces, worst, k_ms, p_ms):
@@ -721,6 +1192,8 @@ def run(kernels_only: bool = False) -> dict:
                "thermite_tpu/ops/swg_pallas.py:409", worst2, ms2, plain_ms2),
         record("swg_forward", "swg_forward.cu",
                "thermite_tpu/ops/swg_pallas.py:185", worst3, ms3, plain_ms3),
+        record("swg_traceback", "swg_traceback.cu",
+               "thermite_tpu/ops/swg_pallas.py:244", worst4, ms4, plain_ms4),
     ]}
 
 

@@ -21,6 +21,7 @@ import torch
 from test_torch_swg_stream import _fuzz_case, _narrow_case
 from test_torch_swg_wide import general_case
 from thermite_tpu_torch.ops import swg_stream as ss
+from thermite_tpu_torch.ops.swg_traceback import _walk_runs_plain, traceback_smem_bytes
 from thermite_tpu_torch.ops.layout import _WPAD, pack_meta_host, smax_for
 
 CSRC = os.path.join(
@@ -47,6 +48,10 @@ def host_lib(tmp_path_factory):
     lib.thermite_swg_host_walk.restype = i32
     lib.thermite_swg_host_walk.argtypes = [
         p, i32, i32, p, p, p, p, p, i64, i32, p, p,
+    ]
+    lib.thermite_swg_host_walk_runs.restype = i32
+    lib.thermite_swg_host_walk_runs.argtypes = [
+        p, i32, i32, p, p, p, i64, i32, i32, p, p,
     ]
     lib.thermite_swg_host_slots_for.restype = i32
     lib.thermite_swg_host_slots_for.argtypes = [i32, i32]
@@ -154,6 +159,53 @@ def test_walk_and_header_general_band(host_lib, slots):
     assert (ns > 0).any()
 
 
+def _runs_case(host_lib, words, rnib, meta, XMAX, YMAX, slots, steps, rmax):
+    """walk_runs<SLOTS> on the planes of a plain forward pass ==
+    _walk_runs_plain on its directions: nruns and every run slot."""
+    m9 = torch.from_numpy(np.ascontiguousarray(meta))
+    x, y = ss._windows(torch.from_numpy(words), torch.from_numpy(rnib), m9,
+                       XMAX, YMAX)
+    xlen, ylen, band, xdrop = (m9[:, k] for k in (6, 3, 7, 8))
+    L = 32 * slots
+    _, mi, mj, _, dirs = ss._forward_plain(x, y, xlen, ylen, band, xdrop, L)
+    want_n, want_runs = _walk_runs_plain(dirs, mi, mj, band, steps, rmax)
+    planes = np.ascontiguousarray(_planes(dirs.numpy()))
+    n = len(meta)
+    runs = np.zeros((n, rmax), np.int32)
+    nruns = np.zeros(n, np.int32)
+    arrs = [a.numpy().astype(np.int32) for a in (mi, mj, band)]
+    rc = host_lib.thermite_swg_host_walk_runs(
+        _ptr(planes), slots, YMAX, *[_ptr(a) for a in arrs], n, steps, rmax,
+        _ptr(runs), _ptr(nruns),
+    )
+    assert rc == 0
+    assert (nruns == want_n.numpy()).all()
+    assert (runs == want_runs.numpy()).all()
+    return nruns
+
+
+@pytest.mark.parametrize("slots,steps,rmax", [
+    (1, 0, 24), (2, 0, 3), (4, 0, 64), (8, 20, 24), (16, 0, 1), (32, 0, 6),
+])
+def test_walk_runs(host_lib, slots, steps, rmax):
+    """Run boundaries (M and S are separate ops), the step bound
+    (XMAX + YMAX + 2, or 20 to cut walks short) and RMAX overflow (-1,
+    the first RMAX runs still written; exactly RMAX runs is valid), for
+    every slot class of kernel 4."""
+    if slots <= 2:
+        words, rnib, meta, XMAX, YMAX = _fuzz_case(slots, 32 * (slots + 1), 64)
+    else:
+        words, rnib, meta = general_case(30 + slots, 48, 32, 110, 96, 128)
+        XMAX, YMAX = 96, 128
+    steps = steps or XMAX + YMAX + 2
+    nr = _runs_case(host_lib, words, rnib, meta, XMAX, YMAX, slots, steps, rmax)
+    assert (nr >= min(rmax, 2)).any()
+    if steps < XMAX + YMAX + 2 or rmax < 8:
+        assert (nr == -1).any()
+    if rmax < 8:
+        assert (nr == rmax).any()
+
+
 def test_slot_classes_match_python(host_lib):
     for xmax in (1, 20, 31, 32, 63, 64, 96, 200, 255, 256, 511, 512):
         for band in range(0, 1024, 7):
@@ -178,3 +230,8 @@ def test_shared_memory_fits_every_accepted_shape(host_lib):
     # the direction planes alone at SLOTS 32, YMAX 512: one warp per block
     host_lib.thermite_swg_host_smem(_WPAD, _WPAD, pw, 32, 4, _ptr(warps))
     assert warps[0] == 1
+    # kernel 4 sizes a warp the same way, with its RMAX runs for pw
+    for slots, ymax, rmax in ((1, 128, 24), (4, 160, 24), (32, 512, 64)):
+        words = host_lib.thermite_swg_host_smem(96, ymax, rmax, slots, 4,
+                                                _ptr(warps))
+        assert 4 * words == traceback_smem_bytes(96, ymax, rmax, slots)

@@ -15,9 +15,13 @@ With ``use_native=False`` the chunk runs without the C++ engine, as the
 reference's fallback path does: Python builds the problems, the
 forward-scores kernel scores them, Python arbitrates, the stream kernel
 walks the winners only (fused rows), and the walks are decoded, stitched
-and lifted in Python.  Outputs of every path are identical to the
-reference pipeline's (tests/test_torch_batch.py,
-tests/test_torch_batch_full_band.py, tests/test_torch_batch_no_native.py).
+and lifted in Python.  ``align_paired_emit`` runs both mates of each
+pair in one interleaved batch whose chunks never split a pair, and pairs
+them in C++ (or in Python without the engine).  Outputs of every path
+are identical to the reference pipeline's (tests/test_torch_batch.py,
+tests/test_torch_batch_full_band.py, tests/test_torch_batch_no_native.py,
+tests/test_torch_paired.py).  ``host_engine`` is the host assembly
+(seeder, text, C++ engine) that the all-C++ ``CppAligner`` shares.
 
 Chunks flow through a 3-stage software pipeline (build -> device ->
 arbitrate/finalize) two deep: while the card runs chunk k the host
@@ -65,6 +69,7 @@ from ..ops.layout import (
 )
 from ..ops.swg_forward import swg_forward
 from ..ops.swg_stream import PACKED_BAND_MAX, swg_stream
+from .paired import STRIP_TAGS, pair_serializer, splice_pairs
 
 
 def _round_up(v: int, m: int) -> int:
@@ -178,6 +183,73 @@ class _Task:
     span: Tuple[int, int, int, int] = (0, 0, 0, 0)  # ystart, yend, xstart, xend
 
 
+@dataclass
+class HostEngine:
+    """The host side that the batch pipeline and the all-C++ engine
+    (``align/cpu.py``) share: the seeder, the offsets of the transcripts
+    in the reference text, the text itself (genome fwd+rc with $
+    sentinels, then every transcript's spliced sequence) and the C++
+    build/arbitrate/finalize/emit engine (None when not asked for)."""
+
+    seeder: object
+    tx_off: np.ndarray
+    ref_text: np.ndarray
+    native: object
+
+
+def host_engine(index: Index, opts: AlignOpts, use_native: bool = True
+                ) -> HostEngine:
+    """Assemble the ``HostEngine`` of ``index`` (reference
+    ``BatchAligner.__init__``, ``batch.py:186-302``).  The text must be
+    ACGTN$ only: the nibble-packed device text has no other codes.  A C++
+    engine that fails to load raises."""
+    # the seeder runs on the C++ engine's library as well
+    _build.native_engine()
+    from thermite_tpu.seed.kmer import MAX_ANCHOR_K
+    from thermite_tpu.seed.native import make_seeder
+
+    seeder = make_seeder(
+        index.seq_arr, opts.min_seed_len,
+        table=getattr(index, "seed_table", None),
+        stride_known=getattr(index, "seed_stride", None),
+    )
+    txs = index.txome.txs
+    tx_off = np.zeros(len(txs) + 1, np.int64)
+    base = len(index.seq_arr)
+    for i, tx in enumerate(txs):
+        tx_off[i] = base
+        base += len(tx.seq)
+    tx_off[len(txs)] = base
+    rt = getattr(index, "ref_text_arr", None)
+    if rt is not None and len(rt) == tx_off[len(txs)]:
+        text = np.asarray(rt)
+    else:
+        text = np.concatenate(
+            [index.seq_arr] + [np.frombuffer(tx.seq, np.uint8) for tx in txs]
+        )
+    if not getattr(index, "text_acgtn_ok", False):
+        from thermite_tpu.index.build import acgtn_counts
+
+        counts = acgtn_counts(text)
+        counts[list(b"ACGTN$") + [0]] = 0
+        if counts.sum():
+            bad = [chr(b) for b in np.flatnonzero(counts)[:5]]
+            raise NotImplementedError(
+                f"reference text contains non-ACGTN$ bytes ({bad}...): "
+                "the nibble-packed device text cannot represent them"
+            )
+    native = None
+    if use_native:
+        from thermite_tpu.align.native_batch import NativeBatchEngine
+
+        native = NativeBatchEngine(
+            index, opts, tx_off, text,
+            opts.min_seed_len, min(MAX_ANCHOR_K, opts.min_seed_len),
+            seeder=seeder if hasattr(seeder, "_h") else None,
+        )
+    return HostEngine(seeder, tx_off, text, native)
+
+
 class BatchAligner:
     # Chunks are cut by problem count, just under a power-of-two bucket
     # of kernel rows (65536), so row padding stays a few percent.
@@ -204,56 +276,10 @@ class BatchAligner:
         self._est_chunk_reads = self.PROBLEM_BUDGET // 4
         self._ref_cols_c = None
 
-        # the seeder runs on the C++ engine's library as well
-        _build.native_engine()
-        from thermite_tpu.seed.kmer import MAX_ANCHOR_K
-        from thermite_tpu.seed.native import make_seeder
-
-        self.seeder = make_seeder(
-            index.seq_arr, opts.min_seed_len,
-            table=getattr(index, "seed_table", None),
-            stride_known=getattr(index, "seed_stride", None),
-        )
-        # resident reference text: concatenated genome (fwd+rc, with $
-        # sentinels) followed by every transcript's spliced sequence
-        txs = index.txome.txs
-        self.tx_off = np.zeros(len(txs) + 1, np.int64)
-        base = len(index.seq_arr)
-        for i, tx in enumerate(txs):
-            self.tx_off[i] = base
-            base += len(tx.seq)
-        self.tx_off[len(txs)] = base
-        rt = getattr(index, "ref_text_arr", None)
-        if rt is not None and len(rt) == self.tx_off[len(txs)]:
-            self._ref_text_host = np.asarray(rt)
-        else:
-            self._ref_text_host = np.concatenate(
-                [index.seq_arr] + [np.frombuffer(tx.seq, np.uint8) for tx in txs]
-            )
+        eng = host_engine(index, opts, use_native)
+        self.seeder, self.tx_off = eng.seeder, eng.tx_off
+        self._ref_text_host, self.native = eng.ref_text, eng.native
         self._ref_text_dev = None  # device copy, uploaded on first use
-        if not getattr(index, "text_acgtn_ok", False):
-            # the nibble-packed device text has codes for ACGTN$ only
-            from thermite_tpu.index.build import acgtn_counts
-
-            counts = acgtn_counts(self._ref_text_host)
-            counts[list(b"ACGTN$") + [0]] = 0
-            if counts.sum():
-                bad = [chr(b) for b in np.flatnonzero(counts)[:5]]
-                raise NotImplementedError(
-                    f"reference text contains non-ACGTN$ bytes ({bad}...): "
-                    "the nibble-packed device text cannot represent them"
-                )
-        # the C++ build/arbitrate/finalize engine; a failure to load it
-        # raises (use_native=False asks for the Python host stages)
-        self.native = None
-        if use_native:
-            from thermite_tpu.align.native_batch import NativeBatchEngine
-
-            self.native = NativeBatchEngine(
-                index, opts, self.tx_off, self._ref_text_host,
-                opts.min_seed_len, min(MAX_ANCHOR_K, opts.min_seed_len),
-                seeder=self.seeder if hasattr(self.seeder, "_h") else None,
-            )
 
     def _narrowing(self) -> bool:
         return self.native is not None and self.narrow_band > 0
@@ -327,6 +353,76 @@ class BatchAligner:
         self._pipeline([r[1] for r in recs], fin)
         return b"".join(chunks)
 
+    def align_paired_emit(self, pair_recs, fmt_bam, max_insert: int = 1000,
+                          mate_rescue: bool = True,
+                          strip_tags: bool = False) -> bytes:
+        """Paired-end emit (reference ``batch.py:414-544``): ``pair_recs``
+        is a list of ((name, seq, qual) R1, (name, seq, qual) R2) byte
+        tuples; returns the SAM lines or BAM record blobs (no header) in
+        input-pair order, mate fields filled (FLAG 0x1/0x2/0x8/0x20/0x40/
+        0x80, RNEXT, PNEXT, TLEN) as ``pair_records`` fills them.
+
+        Both mates ride one interleaved batch, so each chunk's device pass
+        covers both.  The C++ engine decides the FR pairs and emits the
+        records; the pairs it leaves for mate rescue (one mate unmapped)
+        are serialized by ``pair_records`` and the Python writers and
+        spliced into its bytes at the offsets it reports.  Chunks without
+        the C++ engine (or whose emit fell back) are paired and
+        serialized in Python.  ``stats`` counts ``emit_cpp_chunks``,
+        ``spliced_pairs`` and ``emit_py_chunks``."""
+        recs = [rec for pair in pair_recs for rec in pair]
+        ser_pair = pair_serializer(self.index, fmt_bam, max_insert,
+                                   self.opts if mate_rescue else None,
+                                   strip_tags)
+        stats = self.stats
+        chunks: List[bytes] = []
+
+        def pair_bytes(base, results, p):
+            r1, r2 = pair_recs[base + p]
+            return ser_pair(r1, r2, results[2 * p], results[2 * p + 1])
+
+        def fin(st, start):
+            if start % 2 or len(st.reads) % 2:
+                raise AssertionError("a chunk split a read pair")
+            base = start // 2
+            if st.native_ch is not None:
+                tb_out = self._take_tb(st)
+                fin_data = self.native.finalize(st.native_ch, tb_out,
+                                                st.meta_all)
+                self.native.pair_chunk(st.native_ch, max_insert, mate_rescue)
+                sl = recs[start : start + len(st.reads)]
+                raw = self.native.emit_chunk(
+                    st.native_ch, fmt_bam, [r[0] for r in sl],
+                    [r[1] for r in sl], [r[2] or b"" for r in sl],
+                    strip_tags=strip_tags,
+                )
+                if raw is not None:
+                    pairs_idx, offs = self.native.splices(st.native_ch)
+                    self.native.free_chunk(st.native_ch)
+                    st.native_ch = None
+                    stats.emit_cpp_chunks = getattr(stats, "emit_cpp_chunks", 0) + 1
+                    stats.spliced_pairs = (getattr(stats, "spliced_pairs", 0)
+                                           + len(pairs_idx))
+                    if len(pairs_idx):
+                        # objects only for the reads of the spliced pairs
+                        want = {2 * p + m for p in pairs_idx.tolist()
+                                for m in (0, 1)}
+                        results = [[] for _ in st.reads]
+                        self._objects_from_native(st, fin_data, results, want)
+                        raw = splice_pairs(
+                            raw, pairs_idx, offs,
+                            lambda p: pair_bytes(base, results, p))
+                    chunks.append(raw)
+                    return
+                st.tb_full = tb_out  # fall back to the object path
+            results = self._finalize_chunk(st)
+            stats.emit_py_chunks = getattr(stats, "emit_py_chunks", 0) + 1
+            chunks.append(b"".join(pair_bytes(base, results, p)
+                                   for p in range(len(results) // 2)))
+
+        self._pipeline([r[1] for r in recs], fin, paired=True)
+        return b"".join(chunks)
+
     def _pin_shapes(self, reads: List[bytes]) -> None:
         """Raise every sticky shape to the batch's worst case up front,
         so one batch runs one kernel shape and one set of buffer sizes
@@ -357,21 +453,25 @@ class BatchAligner:
             _pow2_bucket(min(len(reads), self.PROBLEM_BUDGET), 256), self._NREADS
         )
 
-    def _pipeline(self, reads: List[bytes], finalize_fn) -> None:
+    def _pipeline(self, reads: List[bytes], finalize_fn,
+                  paired: bool = False) -> None:
         """The 3-stage chunk loop; ``finalize_fn(st, start_read_index)``
-        consumes each chunk in input order.  The generational GC is
-        paused for the batch: finalize retains many small objects, and
-        every gen-0 collection would re-traverse them."""
+        consumes each chunk in input order.  ``paired``: the reads are
+        interleaved mates (R1, R2, R1, ...) and chunks cut only at pair
+        boundaries.  The generational GC is paused for the batch:
+        finalize retains many small objects, and every gen-0 collection
+        would re-traverse them."""
         gc_was_enabled = gc.isenabled()
         if gc_was_enabled:
             gc.disable()
         try:
-            self._pipeline_inner(reads, finalize_fn)
+            self._pipeline_inner(reads, finalize_fn, paired)
         finally:
             if gc_was_enabled:
                 gc.enable()
 
-    def _pipeline_inner(self, reads: List[bytes], finalize_fn) -> None:
+    def _pipeline_inner(self, reads: List[bytes], finalize_fn,
+                        paired: bool) -> None:
         built: List[Optional[_ChunkState]] = []
         starts: List[int] = []
         arb_i = fin_i = i = 0
@@ -382,7 +482,7 @@ class BatchAligner:
         while i < len(reads) or not built:
             with self.stats.stage("build"):
                 starts.append(i)
-                st, i = self._build_chunk(reads, i)
+                st, i = self._build_chunk(reads, i, paired)
             self._dispatch_forward(st)
             self.stats.chunks += 1
             self.stats.reads += len(st.reads)
@@ -410,14 +510,18 @@ class BatchAligner:
             fin_i += 1
 
     # ------------------------------------------------------------------
-    def _build_chunk(self, all_reads: List[bytes], start: int
-                     ) -> Tuple[_ChunkState, int]:
+    def _build_chunk(self, all_reads: List[bytes], start: int,
+                     paired: bool = False) -> Tuple[_ChunkState, int]:
         if self.native is None:
-            return self._build_chunk_py(all_reads, start)
+            return self._build_chunk_py(all_reads, start, paired)
         # offer a bit more than the running reads-per-chunk estimate so
         # the problem budget, not the offer, usually cuts the chunk
         est = self._est_chunk_reads
         take = min(len(all_reads) - start, max(256, (est * 5) // 4))
+        if paired and take % 2:
+            # never offer half a pair: with an even offer the C++ build's
+            # pair-boundary budget cuts consume whole pairs
+            take += 1 if start + take < len(all_reads) else -1
         reads = all_reads[start : start + max(take, 0)]
         RPAD = self._RPAD
         reads_pad, read_lens = self.native.prep_reads(
@@ -425,6 +529,7 @@ class BatchAligner:
         )
         ch, consumed, meta, tasks = self.native.build_chunk(
             reads_pad, read_lens, len(reads), self.PROBLEM_BUDGET,
+            paired=paired,
         )
         if consumed == take and start + consumed < len(all_reads):
             self._est_chunk_reads = est * 2  # budget not reached: grow
@@ -443,17 +548,20 @@ class BatchAligner:
         st.reads_dev = self._upload(self.native.nib_pack_reads(upload))
         return st, start + consumed
 
-    def _build_chunk_py(self, all_reads: List[bytes], start: int
-                        ) -> Tuple[_ChunkState, int]:
+    def _build_chunk_py(self, all_reads: List[bytes], start: int,
+                        paired: bool = False) -> Tuple[_ChunkState, int]:
         """The chunk build without the C++ engine (reference
         ``batch.py:683-788``): seed each read, and for every hit make a
         genome task and one task per transcript the hit lies in, each
-        with a left and a right extension problem."""
+        with a left and a right extension problem.  ``paired`` cuts only
+        at pair boundaries."""
         opts, index = self.opts, self.index
         st = _ChunkState(reads=[])
         reads, problems = st.reads, st.problems
         pos = start
-        while pos < len(all_reads) and len(problems) < self.PROBLEM_BUDGET:
+        while pos < len(all_reads) and (
+                len(problems) < self.PROBLEM_BUDGET
+                or (paired and len(reads) % 2)):
             read = all_reads[pos].upper()
             pos += 1
             reads.append(read)
@@ -885,35 +993,45 @@ class BatchAligner:
         st.native_ch = None
         return results
 
-    def _objects_from_native(self, st: _ChunkState, fin_data, results) -> None:
+    def _objects_from_native(self, st: _ChunkState, fin_data, results,
+                             want=None) -> None:
+        """GenomeAlignment objects of the C++ finalize outputs into
+        ``results`` (one list per chunk read).  ``want`` (a set of chunk
+        read indices) restricts them to those reads (the paired emit's
+        spliced pairs), built in Python; otherwise the C object builder
+        builds them all when it is available."""
         sel = st.selected_arr
         fin_runs, fin_off, tx_runs, tx_off, tx_meta, fallback = fin_data
         rl, rn, rs = self._ref_cols()
-        from thermite_tpu.align import objbuild
+        if want is None:
+            from thermite_tpu.align import objbuild
 
-        # C object builder: the same instances via tp_alloc + slot
-        # stores; fallback rows come back as None placeholders
-        nfall = objbuild.build(
-            sel, fin_runs, fin_off, tx_runs, tx_off, tx_meta, fallback,
-            st.tasks_arr[:, 9], rn, rs, rl, [len(r) for r in st.reads],
-            results,
-        )
-        if nfall is not None:
-            if nfall:
-                for s in np.flatnonzero(fallback):
-                    self.stats.stream_fallbacks += 1
-                    lst = results[int(sel[s, 0])]
-                    lst[lst.index(None)] = self._finalize_selected_fallback(
-                        st, int(s), sel[s]
-                    )
-            return
-        # the builder is unavailable: the same objects from Python
+            # C object builder: the same instances via tp_alloc + slot
+            # stores; fallback rows come back as None placeholders
+            nfall = objbuild.build(
+                sel, fin_runs, fin_off, tx_runs, tx_off, tx_meta, fallback,
+                st.tasks_arr[:, 9], rn, rs, rl, [len(r) for r in st.reads],
+                results,
+            )
+            if nfall is not None:
+                if nfall:
+                    for s in np.flatnonzero(fallback):
+                        self.stats.stream_fallbacks += 1
+                        lst = results[int(sel[s, 0])]
+                        lst[lst.index(None)] = self._finalize_selected_fallback(
+                            st, int(s), sel[s]
+                        )
+                return
+        # restricted, or the builder is unavailable: the same objects
+        # from Python
         sel_rows = sel.tolist()
         fin_runs, fin_off = fin_runs.tolist(), fin_off.tolist()
         tx_runs, tx_off, tx_meta = tx_runs.tolist(), tx_off.tolist(), tx_meta.tolist()
         task_tx = st.tasks_arr[:, 9].tolist()
         for s, row in enumerate(sel_rows):
             (ri, ti, atype, gene, refid, score, ys, ye, xs, xe, prim) = row
+            if want is not None and ri not in want:
+                continue
             if fallback[s]:
                 self.stats.stream_fallbacks += 1
                 results[ri].append(self._finalize_selected_fallback(st, s, sel[s]))
@@ -1025,11 +1143,10 @@ def _serialize_records(index, recs, results, fmt_bam, strip_tags: bool = False
             for (name, seq, qual), alns in zip(recs, results) for aln in alns
         )
     ref_ids = {name: i for i, (name, _) in enumerate(unique_refs(index))}
-    strip = {"TX", "GX", "GN", "RE"}
 
     def ser(rec):
         if strip_tags:
-            rec.tags = [t for t in rec.tags if t[0] not in strip]
+            rec.tags = [t for t in rec.tags if t[0] not in STRIP_TAGS]
         if fmt_bam:
             return encode_bam_record(rec, ref_ids)
         return (rec.to_line() + "\n").encode()

@@ -3,14 +3,20 @@
     python -m thermite_tpu_torch.cli index ref.fasta ref.gtf -o ref.tai.npz
     python -m thermite_tpu_torch.cli align ref.tai.npz reads.fq -a -o out.bam \\
         -k20 -s0 --intron-mode
+    python -m thermite_tpu_torch.cli align ref.tai.npz r1.fq r2.fq --paired \\
+        -a -o out.bam -k20 -s0 --intron-mode
+    python -m thermite_tpu_torch.cli merge -o out.bam out.bam.shard000 ...
 
 ``index`` builds the reference ``Index``.  ``align --engine batch`` (the
 default) runs the port's batch pipeline on ``--device`` (``cuda`` by
 default; a run without a card raises rather than falling back);
-``--engine oracle`` runs the reference's sequential oracle.  Flags and
-output formats match ``thermite_tpu.cli``: PAF by default, ``-a`` for
-SAM, or BAM when the output path ends in ``.bam``.  Parts of the
-reference CLI not yet ported raise NotImplementedError naming their
+``--engine cpp`` the all-C++ host engine; ``--engine oracle`` the
+reference's sequential oracle.  ``--paired`` aligns two mate files.
+``--num-hosts``/``--host-id`` align one contiguous block of the reads and
+write ``OUTPUT.shardNNN``; ``merge`` joins the shards in host order.
+Flags and output formats match ``thermite_tpu.cli``: PAF by default,
+``-a`` for SAM, or BAM when the output path ends in ``.bam``.  Parts of
+the reference CLI not yet ported raise NotImplementedError naming their
 ROADMAP.md item.
 """
 
@@ -35,7 +41,7 @@ def _not_ported(what: str, item: str):
     )
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="thermite", description="spliced RNA aligner (PyTorch/CUDA port)"
     )
@@ -60,24 +66,50 @@ def main(argv=None) -> int:
                     default=DEFAULT_MULTIMAP_SCORE_RANGE)
     pa.add_argument("-a", dest="bam", action="store_true", help="SAM/BAM output")
     pa.add_argument("--intron-mode", action="store_true")
-    pa.add_argument("--engine", choices=["oracle", "batch", "cpp"], default="batch")
+    pa.add_argument("--engine", choices=["oracle", "batch", "cpp"], default="batch",
+                    help="batch = the CUDA pipeline; oracle = sequential "
+                    "referee; cpp = all-C++ host engine (SAM/BAM only)")
     pa.add_argument("--batch-size", type=int, default=16384)
     pa.add_argument("--threads", type=int, default=0, metavar="N",
-                    help="host threads of the C++ chunk build (0 = auto)")
+                    help="host threads of the C++ stages and of the cpp "
+                    "engine's DP (0 = THERMITE_THREADS, else all cores)")
     pa.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cuda (default) or cpu (plain PyTorch kernels)")
-    pa.add_argument("--paired", action="store_true")
-    pa.add_argument("--mesh", type=int, default=0, metavar="N")
+    pa.add_argument("--paired", action="store_true",
+                    help="the two query files are R1/R2 mates (SAM/BAM "
+                    "output; pair flags, RNEXT/PNEXT/TLEN)")
+    pa.add_argument("--max-insert", type=int, default=1000, metavar="N",
+                    help="max template length for a proper pair (paired mode)")
+    pa.add_argument("--no-mate-rescue", action="store_true",
+                    help="do not search an unmapped mate inside its mapped "
+                    "partner's insert window (paired mode)")
     pa.add_argument("--profile", default=None, metavar="DIR")
+    pa.add_argument("--mesh", type=int, default=0, metavar="N")
+    pa.add_argument("--num-hosts", type=int, default=1,
+                    help="total aligner hosts; this host aligns its "
+                    "contiguous block of the reads and writes OUTPUT.shardNNN")
+    pa.add_argument("--host-id", type=int, default=None,
+                    help="this host's rank in [0, num-hosts)")
+    pa.add_argument("--coordinator", default=None, metavar="HOST:PORT")
 
-    pm = sub.add_parser("merge", help="Merge per-host output shards")
+    pm = sub.add_parser("merge", help="Merge per-host output shards (host "
+                        "order) into one file")
     pm.add_argument("-o", "--output", required=True)
     pm.add_argument("shards", nargs="+")
+    return p
 
-    args = p.parse_args(argv)
+
+def main(argv=None) -> int:
+    args = _parser().parse_args(argv)
 
     if args.cmd == "merge":
-        _not_ported("merge", "Queue 1, item 7a")
+        from thermite_tpu.parallel.multihost import merge_shards, sniff_shard_format
+
+        ext = os.path.splitext(args.output)[1]
+        fmt = ext[1:] if ext in (".bam", ".sam", ".paf") else \
+            sniff_shard_format(args.shards[0])
+        merge_shards(args.shards, args.output, fmt)
+        return 0
 
     from thermite_tpu.index.build import Index
 
@@ -92,12 +124,10 @@ def main(argv=None) -> int:
         index.save(args.index)
         return 0
 
-    if args.engine == "cpp":
-        _not_ported("--engine cpp", "Queue 1, item 4")
-    if args.paired:
-        _not_ported("--paired", "Queue 1, item 5")
     if args.mesh:
         _not_ported("--mesh", "Queue 1, item 7b")
+    if args.coordinator:
+        _not_ported("--coordinator", "Queue 1, item 7")
     if args.profile:
         _not_ported("--profile", "Queue 1, item 9")
     if not 0.0 <= args.min_aln_score_percent <= 1.0:
@@ -111,6 +141,21 @@ def main(argv=None) -> int:
         fmt = FORMAT_BAM if args.output.endswith(".bam") else FORMAT_SAM
     else:
         fmt = FORMAT_PAF
+    # usage checks before the (possibly multi-GB) index load
+    shard, output = None, args.output
+    if args.num_hosts > 1:
+        if args.host_id is None:
+            raise SystemExit("--num-hosts requires --host-id")
+        if not 0 <= args.host_id < args.num_hosts:
+            raise SystemExit("--host-id must be in [0, num-hosts)")
+        shard = (args.host_id, args.num_hosts)
+        if output != "-":
+            output = f"{output}.shard{args.host_id:03d}"
+    if args.paired:
+        if len(args.queries) != 2:
+            raise SystemExit("--paired requires exactly two query files (R1 R2)")
+        if fmt == FORMAT_PAF:
+            raise SystemExit("--paired writes SAM/BAM only (pass -a)")
     if args.threads:
         os.environ["THERMITE_THREADS"] = str(args.threads)
     index = Index.load(args.index)
@@ -126,9 +171,20 @@ def main(argv=None) -> int:
         multimap_score_range=args.multimap_score_range,
         intron_mode=args.intron_mode,
     )
+    if args.paired:
+        from .align.paired import align_paired_from_files
+
+        align_paired_from_files(
+            index, args.queries[0], args.queries[1], output, fmt, opts,
+            engine=args.engine, batch_size=args.batch_size,
+            max_insert=args.max_insert, verbose=args.verbose, shard=shard,
+            mate_rescue=not args.no_mate_rescue, device=args.device,
+        )
+        return 0
     align_reads_from_file(
-        index, args.queries, args.output, fmt, opts, engine=args.engine,
+        index, args.queries, output, fmt, opts, engine=args.engine,
         batch_size=args.batch_size, verbose=args.verbose, device=args.device,
+        shard=shard,
     )
     return 0
 

@@ -1,8 +1,9 @@
 // Scalar pieces of the SWG kernels (swg_stream.cu, swg_stream_wide.cu,
-// swg_forward.cu) that run the same on the host and the device: meta
-// unpacking, the nibble gather, the slot class and shared-memory sizing
-// of a launch, the direction-plane layout, the per-problem traceback
-// walk with its 2-bit code packing, and the header packing.  Compiled
+// swg_forward.cu, swg_traceback.cu) that run the same on the host and the
+// device: meta unpacking, the nibble gather, the slot class and
+// shared-memory sizing of a launch, the direction-plane layout, the
+// per-problem traceback walks (2-bit code packing, run-length runs), and
+// the header packing.  Compiled
 // by nvcc for the kernels and by g++ for the host test harness
 // (swg_stream_host.cpp), so this logic is tested on a machine without a
 // GPU.
@@ -94,9 +95,10 @@ __host__ __device__ inline int slots_for(int band_max, int xmax) {
 }
 
 // Per-warp shared memory of a launch in 32-bit words: direction planes
-// (2*slots words per column 0..ymax), the packed stream (pw words),
-// then the x and y codes as bytes.  The forward kernel passes slots 0
-// and pw 0: codes only.
+// (2*slots words per column 0..ymax), the walk's output (pw words: the
+// packed stream, or the traceback kernel's rmax runs), then the x and y
+// codes as bytes.  The forward kernel passes slots 0 and pw 0: codes
+// only.
 __host__ __device__ inline int warp_smem_words(int xmax, int ymax, int pw,
                                                int slots) {
   return (ymax + 1) * 2 * slots + pw + (xmax + 3) / 4 + (ymax + 3) / 4;
@@ -159,6 +161,43 @@ __host__ __device__ inline WalkEnd walk(const uint32_t* planes, int mi, int mj,
     ++c;
   }
   return WalkEnd{c, i > 0 || j > 0 || c > smax};
+}
+
+// Run-length encoding of one run: (op << 28) | length.
+constexpr int RUN_OP_SHIFT = 28;
+
+// The run-length traceback of kernel 4 (thermite_tpu/ops/swg_pallas.py::
+// make_traceback_kernel, its walk_pair): the same steps as `walk`, from
+// (mi, mj), at most `steps` of them (the kernel shape's XMAX + YMAX + 2).
+// A run is emitted on each op change (M and S are different ops) and
+// after the last step, into runs[nr] while nr < rmax; runs past rmax are
+// counted, not written.  -> nruns, or -1 when more than rmax runs were
+// needed or the walk did not reach the origin within `steps`.
+template <int SLOTS>
+__host__ __device__ inline int walk_runs(const uint32_t* planes, int mi, int mj,
+                                         int band, int steps, int rmax,
+                                         int32_t* runs) {
+  int i = mi, j = mj, cur_op = -1, cur_len = 0, nr = 0;
+  for (int s = 0; s < steps && (i > 0 || j > 0); ++s) {
+    const int row0 = j > band ? j - band : 0;
+    int bi = i - row0;
+    bi = bi < 0 ? 0 : (bi > 2 * band ? 2 * band : bi);
+    const int d = dir_at<SLOTS>(planes, j, bi);
+    if (d != cur_op && cur_len > 0) {
+      if (nr < rmax) runs[nr] = (cur_op << RUN_OP_SHIFT) | cur_len;
+      ++nr;
+      cur_len = 0;
+    }
+    cur_op = d;
+    ++cur_len;
+    if (d <= DIR_SUBST || d == DIR_INS) --i;
+    if (d <= DIR_SUBST || d == DIR_DEL) --j;
+  }
+  if (cur_len > 0) {
+    if (nr < rmax) runs[nr] = (cur_op << RUN_OP_SHIFT) | cur_len;
+    ++nr;
+  }
+  return (nr > rmax || i > 0 || j > 0) ? -1 : nr;
 }
 
 // nsteps field: the step count, -1 for a bad walk, -2-c when the

@@ -1,9 +1,9 @@
 // Host build of the scalar pieces of swg_stream.cuh, with a plain C
 // interface for tests/test_torch_kernel_host.py: g++ compiles the same
 // meta unpacking, nibble gather, slot classes and shared-memory sizing,
-// direction-plane reads, traceback walk, code packing and header packing
-// that the CUDA kernels run, so they are held against the plain PyTorch
-// version without a GPU.
+// direction-plane reads, traceback walks (packed codes and run-length
+// runs), code packing and header packing that the CUDA kernels run, so
+// they are held against the plain PyTorch versions without a GPU.
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libswg_host.so swg_stream_host.cpp
 
@@ -76,6 +76,31 @@ int thermite_swg_host_walk(const uint32_t* planes, int slots, int ymax,
     swg::pack_hdr(ms[p], mi[p], mj[p], swg::nsteps_code(we, cert[p] != 0),
                   hdr + 2 * p);
   }
+  return 0;
+}
+
+// Run walk for n problems (planes as for thermite_swg_host_walk): runs
+// (n, rmax) receive each walk's first rmax runs (nothing else is
+// written), nruns (n,) the walk's count or -1.
+int thermite_swg_host_walk_runs(const uint32_t* planes, int slots, int ymax,
+                                const int32_t* mi, const int32_t* mj,
+                                const int32_t* band, int64_t n, int steps,
+                                int rmax, int32_t* runs, int32_t* nruns) {
+  using Walk = int (*)(const uint32_t*, int, int, int, int, int, int32_t*);
+  Walk fn;
+  switch (slots) {
+    case 1: fn = swg::walk_runs<1>; break;
+    case 2: fn = swg::walk_runs<2>; break;
+    case 4: fn = swg::walk_runs<4>; break;
+    case 8: fn = swg::walk_runs<8>; break;
+    case 16: fn = swg::walk_runs<16>; break;
+    case 32: fn = swg::walk_runs<32>; break;
+    default: return -1;
+  }
+  const int64_t per = (int64_t)(ymax + 1) * 2 * slots;
+  for (int64_t p = 0; p < n; ++p)
+    nruns[p] = fn(planes + p * per, mi[p], mj[p], band[p], steps, rmax,
+                  runs + p * rmax);
   return 0;
 }
 

@@ -27,6 +27,7 @@ KERNELS = {
     "swg_stream": "swg_stream.cu",
     "swg_stream_wide": "swg_stream_wide.cu",
     "swg_forward": "swg_forward.cu",
+    "swg_traceback": "swg_traceback.cu",
 }
 HEADERS = ("swg_stream.cuh", "swg_dp.cuh")
 NVCC_FLAGS = (
@@ -35,17 +36,25 @@ NVCC_FLAGS = (
 )
 
 _p, _i64, _i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-# C signatures of the launch functions (csrc/*.cu, extern "C")
+# C signatures of each library's launch functions (csrc/*.cu, extern "C")
 _LAUNCH = {
-    "swg_stream": ("thermite_swg_stream_launch",
+    "swg_stream": {"thermite_swg_stream_launch":
                    [_p, _i64, _p, _i64, _p, _i32, _i64, _i32, _i32, _i32,
-                    _p, _p, _p]),
-    "swg_stream_wide": ("thermite_swg_stream_wide_launch",
+                    _p, _p, _p]},
+    "swg_stream_wide": {"thermite_swg_stream_wide_launch":
                         [_p, _i64, _p, _i64, _p, _i32, _i64, _i32, _i32,
-                         _i32, _i32, _p, _p, _p]),
-    "swg_forward": ("thermite_swg_forward_launch",
+                         _i32, _i32, _p, _p, _p]},
+    "swg_forward": {"thermite_swg_forward_launch":
                     [_p, _i64, _p, _i64, _p, _i32, _i64, _i32, _i32, _i32,
-                     _p, _p]),
+                     _p, _p]},
+    "swg_traceback": {
+        "thermite_swg_traceback_launch":
+            [_p, _i64, _p, _i64, _p, _i32, _i64, _i32, _i32, _i32, _i32,
+             _p, _p, _p],
+        "thermite_swg_traceback_dense_launch":
+            [_p, _i64, _p, _i64, _p, _i64, _i32, _i32, _i32, _i32, _p, _p,
+             _p],
+    },
 }
 
 _kernel_libs: dict = {}
@@ -105,10 +114,10 @@ def kernel_lib(name: str) -> ctypes.CDLL:
     first call)."""
     if name not in _kernel_libs:
         lib = ctypes.CDLL(build_kernels()[name])
-        fn_name, argtypes = _LAUNCH[name]
-        fn = getattr(lib, fn_name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
+        for fn_name, argtypes in _LAUNCH[name].items():
+            fn = getattr(lib, fn_name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
         _kernel_libs[name] = lib
     return _kernel_libs[name]
 

@@ -45,7 +45,7 @@ before the result lines are printed:
 4. C++ referee: every row of one syn45 chunk that the kernel certified
    equals the full-band scalar SWG of the C++ engine (native.patch_rows).
 5. oracle referee: the SAM records of the first 200 reads equal the
-   reference OracleAligner's through the reference SAM writers.
+   sequential oracle's (align/driver.py) through the Python SAM writers.
 3d. paired syn45: 24576 FR pairs of 90 bp mates from 300 bp fragments
    (bench.py:138-166) through align_paired_emit to BAM; asserts the
    packed kernel ran once per chunk or more, no chunk fell back to
@@ -534,9 +534,9 @@ def phase_syn45(tmp):
     """Index syn45 in memory and run the main path once, counted."""
     import torch
 
-    from thermite_tpu.align.driver import AlignOpts
-    from thermite_tpu.index.build import Index
-    from thermite_tpu.testing.synth import make_truth_reads, write_synth_genome
+    from thermite_tpu_torch.align.driver import AlignOpts
+    from thermite_tpu_torch.index.build import Index
+    from thermite_tpu_torch.testing.synth import make_truth_reads, write_synth_genome
     from thermite_tpu_torch.align.batch import BatchAligner
 
     t0 = time.perf_counter()
@@ -744,8 +744,8 @@ def phase_traceback_path(aligner, st):
     -> the kernel's launches in this run."""
     import torch
 
-    from thermite_tpu.ops.runs import decode_runs_one, decode_stream_batch
-    from thermite_tpu.ops.swg_ref import SwgExtend
+    from thermite_tpu_torch.ops.runs import decode_runs_one, decode_stream_batch
+    from thermite_tpu_torch.ops.swg_ref import SwgExtend
     from thermite_tpu_torch.ops.swg_stream import swg_stream
     from thermite_tpu_torch.ops.swg_traceback import swg_traceback
 
@@ -806,7 +806,7 @@ def phase_traceback_path(aligner, st):
 def paired_workload(index, n_pairs, seed=51):
     """The paired workload of bench.py:138-166: FR pairs of 90 bp mates
     from 300 bp fragments of the first chromosome, quality I."""
-    from thermite_tpu.io.fastx import revcomp
+    from thermite_tpu_torch.io.fastx import revcomp
 
     ref = index.refs[0]
     chrom = index.seq[ref.start_idx : ref.end_idx - 1]
@@ -826,7 +826,7 @@ def mixed_pairs(index, n=240, seed=11):
     pairs, every sixth with a junk mate (unmapped, not rescuable), every
     sixth with a mate mutated at every 15th base (no seed, rescuable),
     and one pair of two junk reads."""
-    from thermite_tpu.io.fastx import revcomp
+    from thermite_tpu_torch.io.fastx import revcomp
 
     ref = index.refs[0]
     chrom = index.seq[ref.start_idx : ref.end_idx - 1]
@@ -856,9 +856,9 @@ def paired_referee(index, aligner, pairs, rescue_opts) -> bytes:
     """tests/test_paired_emit.py:82-103 on the card: the port's
     align_batch on the interleaved mates, then pair_records and the
     Python writers."""
-    from thermite_tpu.align.paired import pair_records
-    from thermite_tpu.io.bam import encode_bam_record
-    from thermite_tpu.io.sam import unique_refs
+    from thermite_tpu_torch.align.paired import pair_records
+    from thermite_tpu_torch.io.bam import encode_bam_record
+    from thermite_tpu_torch.io.sam import unique_refs
     from thermite_tpu_torch.align.paired import _Rec
 
     res = aligner.align_batch([m[1] for pair in pairs for m in pair])
@@ -958,9 +958,9 @@ def phase_cpp(index, opts, aligner, recs, pairs, paired_sub):
 
 
 def phase_oracle(index, opts, aligner, recs):
-    """SAM records of the first reads == the reference oracle's."""
-    from thermite_tpu.align.driver import align_read
-    from thermite_tpu.io.sam import aln_to_sam_record, unmapped_sam_record
+    """SAM records of the first reads == the sequential oracle's."""
+    from thermite_tpu_torch.align.driver import align_read
+    from thermite_tpu_torch.io.sam import aln_to_sam_record, unmapped_sam_record
 
     sub = recs[:N_ORACLE]
     got = aligner.align_batch_emit(sub, False)
@@ -981,8 +981,8 @@ def phase_oracle(index, opts, aligner, recs):
 def phase_cli(index, tmp, recs):
     """The user entry points: save the index, then the port's CLI aligns
     a FASTQ to SAM from the loaded artifact; == the in-memory emit."""
-    from thermite_tpu.io.sam import build_sam_header
-    from thermite_tpu.testing.synth import write_fastq
+    from thermite_tpu_torch.io.sam import build_sam_header
+    from thermite_tpu_torch.testing.synth import write_fastq
     from thermite_tpu_torch.cli import main as cli_main
 
     sub = recs[:2000]
@@ -1007,7 +1007,7 @@ def phase_entry_points(opts, aligner, tmp, recs, pairs, header, single_sam):
     pairs each, against their in-memory counterparts: the CLI with
     --paired, with --engine cpp, two host shards joined by merge (== the
     single CLI run), and the wrapper's two record surfaces."""
-    from thermite_tpu.testing.synth import write_fastq
+    from thermite_tpu_torch.testing.synth import write_fastq
     from thermite_tpu_torch.cli import main as cli_main
     from thermite_tpu_torch.wrapper import ThermiteAligner
 
@@ -1086,8 +1086,9 @@ def run(kernels_only: bool = False) -> dict:
             if any(k in line for k in ("entry function", "registers", "spill")):
                 log(f"    {line.strip()}")
     t0 = time.perf_counter()
-    _build.native_engine()
-    log(f"  C++ host engine ready in {time.perf_counter() - t0:.1f} s")
+    engine = _build.native_engine()
+    log(f"  C++ host engine {os.path.relpath(engine, ROOT)} ready in "
+        f"{time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda", 0)
     log(f"phase 1 done in {time.perf_counter() - t:.1f} s")
 

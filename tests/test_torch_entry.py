@@ -16,17 +16,17 @@ import torch
 from fixtures import READS, write_fixture
 from test_paired_emit import make_mixed_pairs
 from thermite_tpu.align.cpu import CppAligner as RefCppAligner
-from thermite_tpu.align.driver import AlignOpts
 from thermite_tpu.cli import main as ref_main
 from thermite_tpu.index.build import Index
-from thermite_tpu.io.bam import encode_bam_record
-from thermite_tpu.io.sam import unique_refs
 from thermite_tpu.testing.synth import make_truth_reads, write_fastq, write_synth_genome
 from thermite_tpu.wrapper import ThermiteAligner as RefWrapper
 from thermite_tpu_torch.align.batch import BatchAligner
 from thermite_tpu_torch.align.cpu import CppAligner
 from thermite_tpu_torch.cli import main as port_main
+from thermite_tpu_torch.io.bam import encode_bam_record
+from thermite_tpu_torch.io.sam import unique_refs
 from thermite_tpu_torch.wrapper import ThermiteAligner
+from torch_sides import align_opts, indexes
 
 torch.set_num_threads(1)
 
@@ -37,16 +37,17 @@ def synth(tmp_path_factory):
     truth reads as a FASTQ."""
     d = tmp_path_factory.mktemp("torch_entry")
     fasta, gtf = write_synth_genome(str(d), 60_000, seed=43, basename="pe")
-    index = Index.create_from_files(fasta, gtf)
+    index = indexes(fasta, gtf)
     idx = str(d / "pe.tai.npz")
-    index.build_seed_table(stride=1)
-    index.save(idx)
-    reads = make_truth_reads(index, 300, seed=9)
+    for side in index:
+        side.build_seed_table(stride=1)
+    index.ref.save(idx)  # the reference's artifact, loaded by both
+    reads = make_truth_reads(index.ref, 300, seed=9)
     fq = str(d / "reads.fq")
     write_fastq(reads, fq)
     recs = [(n.encode(), s, b"I" * len(s)) for n, s in reads]
-    opts = AlignOpts(min_seed_len=20, min_aln_score_percent=0.0,
-                     min_aln_score=30, intron_mode=True)
+    opts = align_opts(min_seed_len=20, min_aln_score_percent=0.0,
+                      min_aln_score=30, intron_mode=True)
     return d, idx, fq, index, recs, opts
 
 
@@ -88,7 +89,7 @@ def test_wrapper_records_equal_reference(fixture_index, fmt_bam):
         for tag in (b"TX:Z:", b"GX:Z:", b"GN:Z:", b"RE:A:"):
             assert tag not in got
         assert b"AS:i:" in got and got.count(b"\n") >= len(recs)
-    # the per-read (oracle) surface is the reference's own
+    # the per-read (oracle) surface gives the reference's records
     assert [r.to_line() for r in port.align_read(*recs[0])] == \
         [r.to_line() for r in ref.align_read(*recs[0])]
     assert port.header() == ref.header()
@@ -97,9 +98,9 @@ def test_wrapper_records_equal_reference(fixture_index, fmt_bam):
 def test_wrapper_pairs_equal_reference(synth, tmp_path):
     _, idx, _, index, _, opts = synth
     ref, port = RefWrapper(idx), ThermiteAligner(idx, device="cpu")
-    for w in (ref, port):
-        w.set_opts(opts)
-    pairs = make_mixed_pairs(index, n=8, seed=21)
+    ref.set_opts(opts.ref)
+    port.set_opts(opts.port)
+    pairs = make_mixed_pairs(index.ref, n=8, seed=21)
     args = ([r1.id for r1, _ in pairs], [r1.seq for r1, _ in pairs],
             [r1.qual for r1, _ in pairs], [r2.seq for _, r2 in pairs],
             [r2.qual for _, r2 in pairs])
@@ -125,10 +126,13 @@ def test_wrapper_cuda_without_card_raises(fixture_index):
 @pytest.mark.parametrize("fmt_bam", [False, True])
 def test_cpp_engine_equals_batch_emit(synth, fmt_bam):
     _, _, _, index, recs, opts = synth
-    want = BatchAligner(index, opts, device="cpu").align_batch_emit(recs, fmt_bam)
-    got = CppAligner(index, opts, threads=1).align_records(recs, fmt_bam)
+    want = BatchAligner(index.port, opts.port,
+                        device="cpu").align_batch_emit(recs, fmt_bam)
+    got = CppAligner(index.port, opts.port, threads=1).align_records(
+        recs, fmt_bam)
     assert got == want
-    assert RefCppAligner(index, opts).align_records(recs, fmt_bam) == want
+    assert RefCppAligner(index.ref, opts.ref).align_records(
+        recs, fmt_bam) == want
 
 
 def test_cpp_engine_threads_and_full_band(synth, monkeypatch):
@@ -136,13 +140,16 @@ def test_cpp_engine_threads_and_full_band(synth, monkeypatch):
     pass off, single-end and paired; paired == the batch paired emit."""
     _, _, _, index, recs, opts = synth
     pairs = [((r1.id, r1.seq, r1.qual), (r2.id, r2.seq, r2.qual))
-             for r1, r2 in make_mixed_pairs(index, n=18, seed=3)]
+             for r1, r2 in make_mixed_pairs(index.ref, n=18, seed=3)]
+    ref_index, ref_opts = index.ref, opts.ref
+    index, opts = index.port, opts.port
     one = CppAligner(index, opts, threads=1)
     want = one.align_records(recs, False)
     want_p = one.align_records_paired(pairs, True)
     assert want_p == BatchAligner(index, opts, device="cpu").align_paired_emit(
         pairs, True)
-    assert want_p == RefCppAligner(index, opts).align_records_paired(pairs, True)
+    assert want_p == RefCppAligner(ref_index, ref_opts).align_records_paired(
+        pairs, True)
     three = CppAligner(index, opts, threads=3)
     assert three.align_records(recs, False) == want
     assert three.align_records_paired(pairs, True) == want_p
@@ -167,7 +174,7 @@ def test_shards_merged_equal_one_run(synth, ext, paired):
     d, idx, fq, index, *_ = synth
     queries = [fq]
     if paired:
-        pairs = make_mixed_pairs(index, n=30, seed=13)
+        pairs = make_mixed_pairs(index.ref, n=30, seed=13)
         queries = [str(d / "s1.fq"), str(d / "s2.fq")]
         for path, k in zip(queries, (0, 1)):
             write_fastq([(p[k].id.decode(), p[k].seq) for p in pairs], path)

@@ -1,13 +1,13 @@
-"""The port's CPU paths run with JAX blocked.
+"""The port's CPU paths run with JAX and the JAX package blocked.
 
-A subprocess installs a meta-path finder that refuses every ``jax`` and
-``jaxlib`` import, then runs the port's CLI: index from FASTA/GTF, save,
+A subprocess installs a meta-path finder that refuses every ``jax``,
+``jaxlib`` and ``thermite_tpu`` import, then runs the port's CLI: index from FASTA/GTF, save,
 load, and ``align --device cpu`` to SAM, ``--paired`` (the reads as both
 mates) and ``--engine cpp``; two host shards joined by ``merge``; the
 full-band path (``THERMITE_NARROW_BAND=0``), the path without the C++
 engine (``use_native=False``) and the embedding wrapper on the loaded
-index, whose SAM records must equal the main path's.  No jax module may
-load, and the CLI's SAM bytes (single-end, paired, cpp) must equal the
+index, whose SAM records must equal the main path's.  No module of
+either name may load, and the CLI's SAM bytes (single-end, paired, cpp) must equal the
 reference CLI's in this (JAX) process."""
 
 import os
@@ -24,7 +24,7 @@ import importlib.abc, sys
 
 class _BlockJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in ("jax", "jaxlib", "thermite_tpu"):
             raise ModuleNotFoundError(f"blocked import of {name}")
         return None
 
@@ -48,9 +48,9 @@ with open(out, "rb") as a, open(out + ".merged.sam", "rb") as b:
     assert a.read() == b.read()
 
 import os
-from thermite_tpu.align.driver import AlignOpts
-from thermite_tpu.index.build import Index
-from thermite_tpu.io.fastx import parse_fastx
+from thermite_tpu_torch.align.driver import AlignOpts
+from thermite_tpu_torch.index.build import Index
+from thermite_tpu_torch.io.fastx import parse_fastx
 from thermite_tpu_torch.align.batch import BatchAligner
 
 index = Index.load(idx)
@@ -73,7 +73,8 @@ names, seqs, quals = ([r[k] for r in recs] for k in range(3))
 assert w.align_reads_records(names, seqs, quals).count(b"\n") >= len(recs)
 assert w.align_read_pairs_records(names, seqs, quals, seqs, quals).count(
     b"\n") >= 2 * len(recs)
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "thermite_tpu"))
 assert not loaded, loaded
 print("NOJAX-OK")
 """

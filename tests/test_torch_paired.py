@@ -17,12 +17,11 @@ import torch
 
 from test_paired_emit import _expected_bytes, make_mixed_pairs
 from thermite_tpu.align.batch import BatchAligner as RefBatchAligner
-from thermite_tpu.align.driver import AlignOpts
 from thermite_tpu.cli import main as ref_main
-from thermite_tpu.index.build import Index
 from thermite_tpu.testing.synth import write_fastq, write_synth_genome
 from thermite_tpu_torch.align.batch import BatchAligner
 from thermite_tpu_torch.cli import main as port_main
+from torch_sides import align_opts, indexes
 
 torch.set_num_threads(1)
 
@@ -31,13 +30,13 @@ torch.set_num_threads(1)
 def genome(tmp_path_factory):
     d = tmp_path_factory.mktemp("torch_paired")
     fasta, gtf = write_synth_genome(str(d), 60_000, seed=43, basename="pe")
-    return d, fasta, gtf, Index.create_from_files(fasta, gtf)
+    return d, fasta, gtf, indexes(fasta, gtf)
 
 
 @pytest.fixture(scope="module")
 def opts():
-    return AlignOpts(min_seed_len=20, min_aln_score_percent=0.0,
-                     min_aln_score=30, intron_mode=True)
+    return align_opts(min_seed_len=20, min_aln_score_percent=0.0,
+                      min_aln_score=30, intron_mode=True)
 
 
 def _tuples(pairs):
@@ -54,11 +53,12 @@ def _counters(stats):
 @pytest.mark.parametrize("rescue", [True, False])
 def test_paired_emit_equals_reference(genome, opts, fmt_bam, rescue):
     index = genome[3]
-    pairs = _tuples(make_mixed_pairs(index))
-    ref = RefBatchAligner(index, opts, backend="pallas", interpret=True)
+    pairs = _tuples(make_mixed_pairs(index.ref))
+    ref = RefBatchAligner(index.ref, opts.ref, backend="pallas",
+                          interpret=True)
     want = ref.align_paired_emit(pairs, fmt_bam, max_insert=1000,
                                  mate_rescue=rescue)
-    port = BatchAligner(index, opts, device="cpu")
+    port = BatchAligner(index.port, opts.port, device="cpu")
     got = port.align_paired_emit(pairs, fmt_bam, max_insert=1000,
                                  mate_rescue=rescue)
     assert got == want and len(got) > 0
@@ -76,10 +76,11 @@ def test_paired_emit_chunks_cut_at_pairs(genome, opts, use_native):
     the bytes equal the reference's at the same budget and the
     unchunked referee's."""
     index = genome[3]
-    pairs = make_mixed_pairs(index, n=16, seed=29)
-    ref = RefBatchAligner(index, opts, backend="pallas", interpret=True,
-                          use_native=use_native)
-    port = BatchAligner(index, opts, device="cpu", use_native=use_native)
+    pairs = make_mixed_pairs(index.ref, n=16, seed=29)
+    ref = RefBatchAligner(index.ref, opts.ref, backend="pallas",
+                          interpret=True, use_native=use_native)
+    port = BatchAligner(index.port, opts.port, device="cpu",
+                        use_native=use_native)
     for a in (ref, port):
         a.PROBLEM_BUDGET = 7
     want = ref.align_paired_emit(_tuples(pairs), False)
@@ -88,14 +89,15 @@ def test_paired_emit_chunks_cut_at_pairs(genome, opts, use_native):
     assert port.stats.chunks == ref.stats.chunks >= 3
     assert _counters(port.stats) == _counters(ref.stats)
     assert (_counters(port.stats)[2] > 0) == (not use_native)
-    assert got == _expected_bytes(index, opts, pairs, False, True)
+    assert got == _expected_bytes(index.ref, opts.ref, pairs, False, True)
 
 
 def test_paired_emit_full_band_and_chunks(genome, opts, monkeypatch):
     """THERMITE_NARROW_BAND=0 (full band, the general-band kernel) gives
     the same paired bytes."""
     index = genome[3]
-    pairs = _tuples(make_mixed_pairs(index, n=12, seed=7))
+    pairs = _tuples(make_mixed_pairs(index.ref, n=12, seed=7))
+    index, opts = index.port, opts.port
     want = BatchAligner(index, opts, device="cpu").align_paired_emit(pairs, True)
     monkeypatch.setenv("THERMITE_NARROW_BAND", "0")
     full = BatchAligner(index, opts, device="cpu")
@@ -112,7 +114,7 @@ def _write_mates(d, pairs, tag):
 
 def test_paired_cli_equals_reference(genome, tmp_path):
     d, fasta, gtf, index = genome
-    pairs = make_mixed_pairs(index, n=20, seed=5)
+    pairs = make_mixed_pairs(index.ref, n=20, seed=5)
     fq1, fq2 = _write_mates(tmp_path, pairs, "m")
     idx = str(tmp_path / "pe.tai.npz")
     assert port_main(["index", fasta, gtf, "-o", idx]) == 0

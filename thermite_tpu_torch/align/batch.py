@@ -40,25 +40,14 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from thermite_tpu.align.driver import AlignOpts, concat_to_chr_aln, filter_overlapping
-from thermite_tpu.align.extend import extend_seed_match, stitch
-from thermite_tpu.align.types import (
-    EXONIC,
-    INTERGENIC,
-    INTRONIC,
-    Alignment,
-    GenomeAlignment,
-    Mem,
-    RunOps,
-)
-from thermite_tpu.constants import MATCH_SCORE
-from thermite_tpu.index.build import Index
-from thermite_tpu.index.span_lift import lift_tx_span_to_gx
-from thermite_tpu.index.txome import lift_mem_to_tx, lift_tx_to_gx
-from thermite_tpu.utils.stats import PipelineStats
-
 from .. import device as _device
-from ..ops import _build
+from ..constants import MATCH_SCORE
+from ..index.build import Index, acgtn_counts
+from ..index.span_lift import lift_tx_span_to_gx
+from ..index.txome import lift_mem_to_tx, lift_tx_to_gx
+from ..io.bam import encode_bam_record
+from ..io.paf import paf_line
+from ..io.sam import aln_to_sam_record, unique_refs, unmapped_sam_record
 from ..ops.layout import (
     _WPAD,
     expand_stream_hdr,
@@ -67,9 +56,27 @@ from ..ops.layout import (
     pack_reads_nib_host,
     pack_text_nib_host,
 )
+from ..ops.runs import decode_stream_batch
 from ..ops.swg_forward import swg_forward
+from ..ops.swg_ref import SwgExtend
 from ..ops.swg_stream import PACKED_BAND_MAX, swg_stream
+from ..seed.kmer import MAX_ANCHOR_K
+from ..seed.native import make_seeder
+from ..utils.stats import PipelineStats
+from . import objbuild
+from .driver import AlignOpts, concat_to_chr_aln, filter_overlapping
+from .extend import extend_seed_match, stitch
+from .native_batch import NativeBatchEngine
 from .paired import STRIP_TAGS, pair_serializer, splice_pairs
+from .types import (
+    EXONIC,
+    INTERGENIC,
+    INTRONIC,
+    Alignment,
+    GenomeAlignment,
+    Mem,
+    RunOps,
+)
 
 
 def _round_up(v: int, m: int) -> int:
@@ -203,11 +210,6 @@ def host_engine(index: Index, opts: AlignOpts, use_native: bool = True
     ``BatchAligner.__init__``, ``batch.py:186-302``).  The text must be
     ACGTN$ only: the nibble-packed device text has no other codes.  A C++
     engine that fails to load raises."""
-    # the seeder runs on the C++ engine's library as well
-    _build.native_engine()
-    from thermite_tpu.seed.kmer import MAX_ANCHOR_K
-    from thermite_tpu.seed.native import make_seeder
-
     seeder = make_seeder(
         index.seq_arr, opts.min_seed_len,
         table=getattr(index, "seed_table", None),
@@ -228,8 +230,6 @@ def host_engine(index: Index, opts: AlignOpts, use_native: bool = True
             [index.seq_arr] + [np.frombuffer(tx.seq, np.uint8) for tx in txs]
         )
     if not getattr(index, "text_acgtn_ok", False):
-        from thermite_tpu.index.build import acgtn_counts
-
         counts = acgtn_counts(text)
         counts[list(b"ACGTN$") + [0]] = 0
         if counts.sum():
@@ -240,8 +240,6 @@ def host_engine(index: Index, opts: AlignOpts, use_native: bool = True
             )
     native = None
     if use_native:
-        from thermite_tpu.align.native_batch import NativeBatchEngine
-
         native = NativeBatchEngine(
             index, opts, tx_off, text,
             opts.min_seed_len, min(MAX_ANCHOR_K, opts.min_seed_len),
@@ -921,9 +919,6 @@ class BatchAligner:
         ops_by_pid: Dict[int, Alignment] = {}
         if not st.pid_list:
             return ops_by_pid
-        from thermite_tpu.ops.runs import decode_stream_batch
-        from thermite_tpu.ops.swg_ref import SwgExtend
-
         meta_sub = st.tb_meta_sub
         with self.stats.dsync("finalize"):
             sub = st.tb.wait()[: len(st.tb_idx)]
@@ -1004,8 +999,6 @@ class BatchAligner:
         fin_runs, fin_off, tx_runs, tx_off, tx_meta, fallback = fin_data
         rl, rn, rs = self._ref_cols()
         if want is None:
-            from thermite_tpu.align import objbuild
-
             # C object builder: the same instances via tp_alloc + slot
             # stores; fallback rows come back as None placeholders
             nfall = objbuild.build(
@@ -1065,8 +1058,6 @@ class BatchAligner:
     def _finalize_selected_fallback(self, st: _ChunkState, s: int, row):
         """Host recompute of a selected alignment whose stream the C++
         finalize flagged (not expected): full scalar SWG of both flanks."""
-        from thermite_tpu.ops.swg_ref import SwgExtend
-
         (ri, ti, atype, gene, refid, score, ys, ye, xs, xe, prim) = (
             int(v) for v in row
         )
@@ -1132,12 +1123,7 @@ def _serialize_records(index, recs, results, fmt_bam, strip_tags: bool = False
     """Python-writer serialization of one chunk's records (the emit
     fallback): ``fmt_bam`` False = SAM, True = BAM, 2 = PAF (unmapped
     reads emit nothing in PAF)."""
-    from thermite_tpu.io.bam import encode_bam_record
-    from thermite_tpu.io.sam import aln_to_sam_record, unique_refs, unmapped_sam_record
-
     if fmt_bam == 2:
-        from thermite_tpu.io.paf import paf_line
-
         return b"".join(
             (paf_line(name, seq, aln, len(alns)) + "\n").encode()
             for (name, seq, qual), alns in zip(recs, results) for aln in alns

@@ -1,13 +1,12 @@
 """The all-C++ engine of the port (``--engine cpp``): the same-host CPU
 baseline.
 
-``CppAligner`` runs the whole pipeline in the reference's C++ engine
+``CppAligner`` runs the whole pipeline in the C++ host engine
 (seeding, chunk build, scalar banded SWG with the narrow-band
 certificate, arbitration, finalize, pairing and record emit) on the host
-threads, with no device.  It is the reference's ``thermite_tpu/align/
-cpu.py`` built on the port's engine assembly (``batch.host_engine``)
-rather than on a JAX ``BatchAligner``; its records equal the batch
-pipeline's bytes.  ``threads=1`` is the single-core baseline the card's
+threads, with no device, on the engine assembly that the batch pipeline
+uses (``batch.host_engine``); its records equal the batch pipeline's
+bytes.  ``threads=1`` is the single-core baseline the card's
 reads/s are compared with.
 """
 
@@ -19,12 +18,11 @@ from typing import List, Tuple
 
 import numpy as np
 
-from thermite_tpu.align.driver import AlignOpts
-from thermite_tpu.index.build import Index
-from thermite_tpu.utils.stats import PipelineStats
-
+from ..index.build import Index
 from ..ops.layout import _WPAD
+from ..utils.stats import PipelineStats
 from .batch import host_engine
+from .driver import AlignOpts, OracleAligner
 from .paired import pair_serializer, splice_pairs
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -68,7 +66,7 @@ class CppAligner:
             reads_pad[i, : len(r)] = np.frombuffer(r, np.uint8)
             lens[i] = len(r)
         patches = ctypes.c_int64(0)
-        # restype/argtypes are declared by the reference's native bindings
+        # restype/argtypes are declared in align/native_batch.py
         ch = lib.thermite_chunk_align_cpu_mt(
             self.native._h, reads_pad.ctypes.data_as(_u8p), len(sl), rpad,
             lens.ctypes.data_as(_i64p), self.PROBLEM_BUDGET, _WPAD, pw,
@@ -114,8 +112,8 @@ class CppAligner:
         """((name, seq, qual) R1, (name, seq, qual) R2) pairs -> SAM/BAM
         record bytes with mate fields, in pair order.  The C++ engine
         pairs and emits chunks that hold whole pairs; the mate-rescue
-        pairs it leaves to the host are aligned by the reference oracle
-        (the engine's own alignments, by the reference's parity tests)
+        pairs it leaves to the host are aligned by the sequential oracle
+        (the engine's own alignments, by the parity tests)
         and spliced in through ``pair_records`` and the Python writers, as
         the batch paired emit does."""
         ser = pair_serializer(self.index, fmt_bam, max_insert,
@@ -125,8 +123,6 @@ class CppAligner:
         def pair_bytes(rec1, rec2) -> bytes:
             nonlocal oracle
             if oracle is None:
-                from thermite_tpu.align.driver import OracleAligner
-
                 oracle = OracleAligner(self.index, self.opts)
             return ser(rec1, rec2, oracle.align_read(rec1[1]),
                        oracle.align_read(rec2[1]))

@@ -7,14 +7,14 @@
         -a -o out.bam -k20 -s0 --intron-mode
     python -m thermite_tpu_torch.cli merge -o out.bam out.bam.shard000 ...
 
-``index`` builds the reference ``Index``.  ``align --engine batch`` (the
+``index`` builds the ``Index`` artifact (the reference package's format).  ``align --engine batch`` (the
 default) runs the port's batch pipeline on ``--device`` (``cuda`` by
 default; a run without a card raises rather than falling back);
 ``--engine cpp`` the all-C++ host engine; ``--engine oracle`` the
-reference's sequential oracle.  ``--paired`` aligns two mate files.
+sequential oracle.  ``--paired`` aligns two mate files.
 ``--num-hosts``/``--host-id`` align one contiguous block of the reads and
 write ``OUTPUT.shardNNN``; ``merge`` joins the shards in host order.
-Flags and output formats match ``thermite_tpu.cli``: PAF by default,
+Flags and output formats match the reference CLI's: PAF by default,
 ``-a`` for SAM, or BAM when the output path ends in ``.bam``.  Parts of
 the reference CLI not yet ported raise NotImplementedError naming their
 ROADMAP.md item.
@@ -27,7 +27,7 @@ import gc
 import os
 import sys
 
-from thermite_tpu.constants import (
+from .constants import (
     DEFAULT_MIN_ALN_SCORE,
     DEFAULT_MIN_ALN_SCORE_PERCENT,
     DEFAULT_MIN_SEED_LEN,
@@ -103,7 +103,7 @@ def main(argv=None) -> int:
     args = _parser().parse_args(argv)
 
     if args.cmd == "merge":
-        from thermite_tpu.parallel.multihost import merge_shards, sniff_shard_format
+        from .parallel.multihost import merge_shards, sniff_shard_format
 
         ext = os.path.splitext(args.output)[1]
         fmt = ext[1:] if ext in (".bam", ".sam", ".paf") else \
@@ -111,7 +111,7 @@ def main(argv=None) -> int:
         merge_shards(args.shards, args.output, fmt)
         return 0
 
-    from thermite_tpu.index.build import Index
+    from .index.build import Index
 
     if args.cmd == "index":
         index = Index.create_from_files(args.reference, args.annotations)
@@ -133,8 +133,7 @@ def main(argv=None) -> int:
     if not 0.0 <= args.min_aln_score_percent <= 1.0:
         raise SystemExit("Min alignment score percent must be between 0.0 and 1.0!")
 
-    from thermite_tpu.align.driver import AlignOpts
-
+    from .align.driver import AlignOpts
     from .align.run import FORMAT_BAM, FORMAT_PAF, FORMAT_SAM, align_reads_from_file
 
     if args.bam:

@@ -1,5 +1,4 @@
-"""Build the hand-written kernels and the reference's C++ engine at first
-use.
+"""Build the hand-written kernels and the C++ host engine at first use.
 
 Each CUDA kernel source (``csrc/*.cu``) is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library of its own with a plain C interface and
@@ -7,7 +6,8 @@ loaded with ctypes; the sources are built in parallel, one ``nvcc`` each.
 The libraries land in ``thermite_tpu_torch/_build/`` (listed in
 ``.gitignore``) under names keyed by a hash of the source, the shared
 headers and the flags, so a changed source builds anew and an unchanged
-one loads at once.  A failed build raises; nothing falls back.
+one loads at once.  The host engine (``csrc/host/``) is built the same
+way with g++.  A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -122,17 +122,46 @@ def kernel_lib(name: str) -> ctypes.CDLL:
     return _kernel_libs[name]
 
 
-def native_engine() -> None:
-    """Build the reference's C++ host engine (``thermite_tpu/seed/
-    _native.so``, gitignored) with g++ when a fresh checkout lacks it.
-    The reference builds it through ``make -C csrc`` together with an
-    optional CPython-API object builder; building the engine alone here
-    keeps the alignment path independent of that optional part."""
-    from thermite_tpu.seed import native
+HOST_CSRC = os.path.join(CSRC, "host")
+_host_paths: dict = {}
 
-    if os.path.exists(native._LIB_PATH):
-        return
-    src = os.path.join(os.path.dirname(_PKG), "csrc", "thermite_native.cpp")
+
+def _host_lib(name: str, src: str, cmd: list) -> str:
+    """Build ``csrc/host/<src>`` with ``cmd`` into ``_build/`` under a
+    name keyed by a hash of the source and the command, unless it is
+    there already; -> the library's path."""
+    if name not in _host_paths:
+        path = os.path.join(HOST_CSRC, src)
+        h = hashlib.sha256(" ".join(cmd).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+        out = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+        if not os.path.exists(out):
+            build_log[name] = _compile(cmd + [path], out, name)
+        _host_paths[name] = out
+    return _host_paths[name]
+
+
+def native_engine() -> str:
+    """The C++ host engine (``csrc/host/thermite_native.cpp``: seeding,
+    chunk build, arbitration, finalize, record emit), built with g++ at
+    first use; -> the library's path.  A failed build raises."""
     cmd = [os.environ.get("CXX", "g++"), "-O3", "-march=native", "-std=c++17",
-           "-fPIC", "-pthread", "-shared", src]
-    build_log["native"] = _compile(cmd, native._LIB_PATH, "C++ engine")
+           "-fPIC", "-pthread", "-shared"]
+    return _host_lib("thermite_native", "thermite_native.cpp", cmd)
+
+
+def object_builder() -> str:
+    """The CPython-API result-object builder (``csrc/host/
+    thermite_objbuild.c``), built with the C compiler against this
+    interpreter's headers; -> the library's path.  It is optional: the
+    caller (``align/objbuild.py``) builds the same objects in Python
+    where this raises (no headers, no compiler)."""
+    import sysconfig
+
+    inc = sysconfig.get_paths()["include"]
+    if not os.path.exists(os.path.join(inc, "Python.h")):
+        raise RuntimeError(f"Python.h not found under {inc}")
+    cmd = [os.environ.get("CC", "gcc"), "-O3", "-march=native", "-fPIC",
+           f"-I{inc}", "-shared"]
+    return _host_lib("thermite_objbuild", "thermite_objbuild.c", cmd)

@@ -4,10 +4,9 @@ These are the constants and numpy packers that the reference keeps in
 ``thermite_tpu/ops/swg_pallas.py`` beside its Pallas kernels: direction
 codes, the problem meta format, the nibble-packed text and read blocks,
 and the packed stream header.  Values are equal to the reference's
-(pinned by tests/test_torch_layout.py), so reference host code that
-imports them (index save/load, the native engine bindings, the stream
-decoder) runs unchanged against this module on a machine without JAX
-(see ``thermite_tpu_torch/__init__.py``).
+(pinned by tests/test_torch_layout.py); the port's host code (index
+save/load, the C++ engine bindings, the stream decoder) and its kernel
+wrappers import them from here.
 """
 
 from __future__ import annotations

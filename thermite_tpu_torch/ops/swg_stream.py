@@ -35,14 +35,13 @@ import ctypes
 
 import torch
 
-from thermite_tpu.constants import (
+from ..constants import (
     GAP_EXTEND,
     GAP_OPEN,
     MATCH_SCORE,
     MIN_SCORE,
     MISMATCH_SCORE,
 )
-
 from .layout import (
     DIR_DEL,
     DIR_INS,

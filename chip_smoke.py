@@ -10,18 +10,26 @@ Phases, each printed with its own timing; any failure exits non-zero
 before the result lines are printed:
 
 1. require CUDA; print the card's name and power limit; build the four
-   CUDA kernels (one nvcc each, in parallel, sm_90a) and the C++ host
-   engine (g++); print the registers and spills of every kernel.
+   CUDA kernels (one nvcc each, in parallel, sm_90a) and the port's own
+   C++ host engine (g++, into thermite_tpu_torch/_build/); print the
+   registers and spills of every kernel.
 2. swg_stream's packed kernel (bands <= 31) == swg_stream_plain
    (bit-exact, tolerance 0) on the same CUDA inputs: fuzz shapes for both
-   band classes and meta forms, the narrow-band certificate shapes, and
-   one full main-path chunk shape (65536 rows, XMAX 96, YMAX 128,
-   band <= 15, SMAX 208), with both times.
+   band classes and meta forms, shapes that cross the sub-warp groups'
+   boundaries (bands 7, 8, 15, 16, 31 and mixed in one launch, xlen of 1
+   and of XMAX, row counts that fill no last warp, problems that end by
+   X-drop at the first columns beside problems that run all theirs), the
+   narrow-band certificate shapes, and one full main-path chunk shape
+   (65536 rows, XMAX 96, YMAX 128, band <= 15, SMAX 208), with both
+   times, the bound and the ragged-warp idle share.
 2b. the general-band stream kernel (swg_stream_wide) == swg_stream_plain,
-   bit-exact: fuzz shapes at bands <= 63, <= 127 and <= 255 in both meta
-   forms (windows up to 512 for the widest), bands above XMAX (up to
-   1023 slots), and the full-band chunk shape (65536 rows, XMAX 96,
-   YMAX 160, band 60, SMAX 256), with both times.
+   bit-exact: group-boundary shapes at bands 32, 47, 48, 63 and mixed,
+   and at small windows where the narrow groups serve it; fuzz shapes at
+   bands <= 63, <= 127 and <= 255 in both meta forms (windows up to 512
+   for the widest), bands above XMAX (up to 1023 slots), and the
+   full-band chunk shape (65536 rows, XMAX 96, YMAX 160, band 60, SMAX
+   256), with both times and the bound; the boundary shapes and the chunk
+   shape again with 32 and with 16 lanes asked for.
 2c. the forward-scores kernel (swg_forward) == swg_forward_plain,
    bit-exact, on the same kinds of shapes, with both times at the
    full-band chunk shape.
@@ -43,7 +51,9 @@ before the result lines are printed:
    forward-scores and general-band kernels each ran once per chunk or
    more.
 4. C++ referee: every row of one syn45 chunk that the kernel certified
-   equals the full-band scalar SWG of the C++ engine (native.patch_rows).
+   equals the full-band scalar SWG of the C++ engine (native.patch_rows);
+   the kernel's time and bound on that chunk in the pipeline's row order,
+   and its time with the rows shuffled (what ragged warps cost).
 5. oracle referee: the SAM records of the first 200 reads equal the
    sequential oracle's (align/driver.py) through the Python SAM writers.
 3d. paired syn45: 24576 FR pairs of 90 bp mates from 300 bp fragments
@@ -66,8 +76,12 @@ before the result lines are printed:
    the wrapper's record surfaces, each equal to its in-memory
    counterpart.
 
-The last lines are one JSON object of kernel records and one JSON object
-naming the device.  Nothing of JAX is imported.
+Every timed kernel is printed beside its bound: the larger of its
+integer operations (cells the plain version computes on the same inputs x
+OPS_PER_CELL) over the card's INT32 rate at the SM clock read under load,
+and its bytes over the memory rate.  The last lines are one JSON object of
+kernel records and one JSON object naming the device.  Nothing of JAX or
+of the JAX package is imported.
 """
 
 from __future__ import annotations
@@ -183,6 +197,39 @@ def chunk_problems(seed, n, wide=60, narrow=15):
     return text, reads, meta, 96, 32 * ((90 + narrow + 1 + 31) // 32)
 
 
+def boundary_problems(seed, n, bands, XMAX=96, YMAX=128):
+    """Problems that cross the kernels' group boundaries: bands drawn from
+    `bands` (mixed in one launch), xlen of 1, of XMAX or random, and three
+    kinds of y window side by side: where the read came from with a wide
+    X-drop (the problem runs all its columns, up to YMAX), the same with
+    X-drop 1, and an unrelated window with X-drop 1 (ends at the first
+    columns).  `n` is best odd: a last warp carries fewer problems than
+    its groups."""
+    from thermite_tpu_torch.ops.layout import meta_row
+
+    rng = np.random.default_rng(seed)
+    RPAD = XMAX
+    text, reads, src = _text_reads(rng, 20000 + 2 * YMAX, 64, RPAD, RPAD)
+    rows = []
+    for _ in range(n):
+        band = int(rng.choice(bands))
+        kind = rng.random()
+        xlen = 1 if kind < 0.2 else XMAX if kind < 0.45 else \
+            int(rng.integers(1, XMAX + 1))
+        q = int(rng.integers(0, RPAD - xlen + 1))
+        ri = int(rng.integers(0, len(reads)))
+        ylen = min(xlen + band + 1, YMAX)
+        where = rng.random()
+        if where < 0.5:
+            p, xd = int(src[ri]) + q, 4000
+        elif where < 0.75:
+            p, xd = int(src[ri]) + q + int(rng.integers(-2, 3)), 1
+        else:
+            p, xd = int(rng.integers(0, len(text) - YMAX)), 1
+        rows.append(meta_row(p, 1, ylen, ri * RPAD + q, 1, xlen, band, xd))
+    return text, reads, np.asarray(rows, np.int32), XMAX, YMAX
+
+
 def _to_dev(text, reads, meta, dev):
     import torch
 
@@ -228,30 +275,111 @@ def compare_kernel(args, reps, kernel, plain=None):
     return nbad, err, ms, plain_ms, got.cpu().numpy()
 
 
+# Integer operations of the recurrence for one band cell, as the DP core
+# (csrc/swg_dp.cuh) writes it.  Without directions 12: C = max(C' + e,
+# D' + (e + o)) is 3; x == y, the select of +1 or -1 and its add are 3;
+# A = max(diag, C) 1; A - s*e and the running max 2; the insertion chain's
+# max(prefix, running) 1 and o + s*e + prefix 1; D = max(A, R) 1; the
+# column max 1.  With directions 15: two compares against D and the
+# packing shift-or.
+OPS_PER_CELL = {True: 15, False: 12}
+INT32_LANES_PER_SM = 64  # Hopper white paper: INT32 units per SM
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+
+
+def sm_clock_mhz(launch, ms):
+    """The SM clock that nvidia-smi reads while `launch` keeps the card
+    busy: about a second of launches is queued, nvidia-smi runs beside
+    them, then the queue is drained; -> (MHz, SM count)."""
+    import torch
+
+    for _ in range(max(int(1000 / max(ms, 0.05)), 20)):
+        launch()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    torch.cuda.synchronize()
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    return mhz, torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def kernel_bound(work_args, meta_np, out_words_per_row, walk, mhz, sms):
+    """The least time the card could take for this launch -> a dict with
+    bound_ms, bound_by and the counts behind them.  Operations: the cells
+    the plain version computes on these inputs (columns until each
+    problem ends x computed slots) x OPS_PER_CELL, over sms x 64 INT32
+    lanes x the SM clock read under load.  Bytes: meta, the window words
+    of text and reads, and the output rows, each once, over the memory
+    rate."""
+    import torch
+
+    from thermite_tpu_torch.ops.swg_stream import dp_work_plain, meta9
+
+    cols, cells = dp_work_plain(*work_args)
+    cols, cells = cols.cpu().numpy(), cells.cpu().numpy()
+    m9 = meta9(torch.from_numpy(np.ascontiguousarray(meta_np))).numpy()
+    window_words = int(((m9[:, 6] + 7) // 8 + (m9[:, 3] + 7) // 8).sum())
+    nbytes = 4 * (meta_np.size + window_words + out_words_per_row * len(meta_np))
+    ops = int(cells.sum()) * OPS_PER_CELL[walk]
+    ops_ms = 1e3 * ops / (sms * INT32_LANES_PER_SM * mhz * 1e6)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms, "cells": int(cells.sum()),
+            "cols": cols, "sm_mhz": mhz}
+
+
+def ragged_idle(cols: np.ndarray, per_warp: int) -> float:
+    """Share of group-columns that idle when `per_warp` neighbouring rows
+    share a warp and every group runs the columns of the warp's longest
+    problem (the loop's every-eighth-column vote not counted)."""
+    n = len(cols) // per_warp * per_warp
+    c = cols[:n].reshape(-1, per_warp)
+    total = int(c.max(1).sum()) * per_warp
+    return 1.0 - float(c.sum()) / total if total else 0.0
+
+
+def log_bound(name, ms, b, per_warp=None):
+    """One line: the time beside its bound, and the ragged-warp idle
+    share in the launch's row order."""
+    idle = "" if per_warp is None else (
+        f", {per_warp} problems a warp idle {100 * ragged_idle(b['cols'], per_warp):.1f}%"
+        f" of group-columns in this row order")
+    log(f"  {name}: {ms:.4f} ms; bound {b['bound_ms']:.4f} ms by "
+        f"{b['bound_by']} ({b['cells']} cells, operations {b['ops_ms']:.4f} ms "
+        f"at {b['sm_mhz']:.0f} MHz, bytes {b['bytes_ms']:.4f} ms); share of "
+        f"bound {100 * b['bound_ms'] / ms:.1f}%{idle}")
+
+
 def _nsteps(rows: np.ndarray) -> np.ndarray:
     """nsteps of split stream rows (int16 halves in the first 2 words)."""
     return np.ascontiguousarray(rows[:, :2]).view(np.int16)[:, 3]
 
 
-def run_cases(dev, cases, kernel, plain=None, stream=True):
+def run_cases(dev, cases, kernel, plain=None, stream=True, **kw):
     """Each case through compare_kernel (the 65536-row ones timed), the
     kernel's wrapper given the case's band bound as the batch pipeline
-    gives it (no device read per launch); -> (worst max_abs_err, (ms,
-    plain_ms) of the last timed case)."""
+    gives it (no device read per launch) and `kw`; -> (worst
+    max_abs_err, (ms, plain_ms, bound) of the last timed case)."""
     import torch
 
-    from thermite_tpu_torch.ops.swg_stream import meta9
+    from thermite_tpu_torch.ops.swg_stream import meta9, stream_group
 
-    worst, timing = 0, (None, None)
+    worst, timing = 0, (None, None, None)
     for name, t, r, m, xm, ym, extra in cases:
         words, rnib, mt = _to_dev(t, r, m, dev)
         bmax = int(meta9(torch.from_numpy(np.ascontiguousarray(m)))[:, 7].max())
+        args = (words, words.shape[0], rnib, mt, xm, ym, *extra)
+        launch = functools.partial(kernel, band_max=bmax, **kw)
         nbad, err, ms, plain_ms, got = compare_kernel(
-            (words, words.shape[0], rnib, mt, xm, ym, *extra),
-            reps=20 if len(m) == 65536 else 0,
-            kernel=functools.partial(kernel, band_max=bmax), plain=plain,
-        )
-        timing = (ms, plain_ms) if ms is not None else timing
+            args, reps=20 if len(m) == 65536 else 0, kernel=launch, plain=plain)
+        if ms is not None:
+            mhz, sms = sm_clock_mhz(lambda: launch(*args), ms)
+            bound = kernel_bound(args[:6], m, got.shape[1], stream, mhz, sms)
+            per_warp = 32 // stream_group(bmax, xm, kw.get("lanes", 0))[0] \
+                if stream else None
+            log_bound(name, ms, bound, per_warp)
+            timing = (ms, plain_ms, bound)
         info = f"XMAX {xm} YMAX {ym}"
         if stream:
             ns = _nsteps(got)
@@ -277,9 +405,22 @@ def both_meta_forms(name, t, r, m, xm, ym, extra):
             (f"{name} 4-col", t, r, pack_meta_host(m), xm, ym, extra)]
 
 
+def boundary_cases(specs, smax):
+    """(name, seed, n, bands) -> cases of boundary_problems at XMAX 96,
+    YMAX 128, the odd ones in the packed meta form."""
+    from thermite_tpu_torch.ops.layout import pack_meta_host
+
+    cases = []
+    for k, (name, seed, n, bands) in enumerate(specs):
+        t, r, m, xm, ym = boundary_problems(seed, n, bands)
+        cases.append((f"group boundaries, {name}, {n} rows", t, r,
+                      pack_meta_host(m) if k % 2 else m, xm, ym, (smax,)))
+    return cases
+
+
 def phase_kernel(dev):
     """The packed kernel == plain on synthetic cases; -> (worst
-    max_abs_err, (ms, plain_ms) at the main-path chunk shape)."""
+    max_abs_err, (ms, plain_ms, bound) at the main-path chunk shape)."""
     from thermite_tpu_torch.ops.layout import pack_meta_host
     from thermite_tpu_torch.ops.swg_stream import swg_stream
 
@@ -287,6 +428,18 @@ def phase_kernel(dev):
     for seed, bmax in ((0, 15), (1, 31)):
         cases += both_meta_forms(f"fuzz band<={bmax}",
                                  *fuzz_problems(seed, 4096, bmax), (256,))
+    # 8 lanes x 4 slots up to band 15 (four problems a warp), 16 x 4 up
+    # to band 31 (two); row counts that fill no last warp, and fewer
+    # problems than one warp holds
+    cases += boundary_cases([
+        ("band 7", 40, 4099, [7]), ("band 8", 41, 4097, [8]),
+        ("band 15", 42, 4099, [15]), ("band 16", 43, 4097, [16]),
+        ("band 31", 44, 4099, [31]),
+        ("bands 0/1/7/8/15 mixed", 45, 4101, [0, 1, 7, 8, 15]),
+        ("bands 7/16/31 mixed", 46, 4099, [7, 16, 31]),
+        ("band 15", 47, 1, [15]), ("band 15", 48, 3, [15]),
+        ("band 31", 49, 1, [31]), ("bands 3/15 mixed", 50, 5, [3, 15]),
+    ], 240)
     t, r, m, xm, ym = chunk_problems(7, 4096)
     cases.append(("certificate shapes (band 60->15)", t, r, m, xm, ym, (384,)))
     t, r, m, xm, ym = chunk_problems(8, 65536)
@@ -319,20 +472,41 @@ def general_band_cases():
 
 
 def phase_kernel_wide(dev, cases):
-    """The general-band stream kernel == plain; -> (worst max_abs_err,
-    (ms, plain_ms) at the full-band chunk shape)."""
+    """The general-band stream kernel == plain, in its default group
+    shapes and with 32 and 16 lanes asked for; -> (worst max_abs_err,
+    (ms, plain_ms, bound) at the full-band chunk shape in the default
+    shape)."""
     from thermite_tpu_torch.ops.swg_stream import swg_stream_wide
 
+    # bands past 31 at XMAX 96: 16 lanes x 8 slots (or 32 x 4) cover the
+    # 97 slots; small windows bring the narrow groups to this kernel too
+    edge = boundary_cases([
+        ("band 32", 60, 4099, [32]), ("band 47", 61, 4097, [47]),
+        ("band 48", 62, 4099, [48]), ("band 63", 63, 4097, [63]),
+        ("bands 32/60/100 mixed", 64, 4099, [32, 60, 100]),
+        ("band 60", 65, 1, [60]), ("band 60", 66, 3, [60]),
+    ], 240)
+    for name, seed, xm in (("band 40 at XMAX 32 (16 x 4)", 67, 32),
+                           ("band 40 at XMAX 16 (8 x 4)", 68, 16)):
+        t, r, m, _, ym = boundary_problems(seed, 2051, [40], xm, 96)
+        edge.append((f"group boundaries, {name}, 2051 rows", t, r, m, xm, ym,
+                     (160,)))
     launches = swg_stream_wide.launches
-    out = run_cases(dev, cases, swg_stream_wide)
-    check(swg_stream_wide.launches - launches >= len(cases),
+    worst, timing = run_cases(dev, edge + cases, swg_stream_wide)
+    n = len(edge) + len(cases)
+    for lanes in (32, 16):
+        log(f"  the same cases with {lanes} lanes asked for:")
+        w, _ = run_cases(dev, edge + cases[-1:], swg_stream_wide, lanes=lanes)
+        worst = max(worst, w)
+        n += len(edge) + 1
+    check(swg_stream_wide.launches - launches >= n,
           "the general-band kernel did not launch on every case")
-    return out
+    return worst, timing
 
 
 def phase_kernel_forward(dev, cases):
     """The forward-scores kernel == plain; -> (worst max_abs_err,
-    (ms, plain_ms) at the full-band chunk shape)."""
+    (ms, plain_ms, bound) at the full-band chunk shape)."""
     from thermite_tpu_torch.ops.swg_forward import swg_forward, swg_forward_plain
 
     extra = both_meta_forms("fuzz band<=15", *fuzz_problems(15, 4096, 15), ())
@@ -432,7 +606,7 @@ def phase_kernel_traceback(dev):
     """Kernel 4 (swg_traceback, swg_traceback_dense) == its plain
     versions, bit-exact, on every case; for each RMAX both overflow rows
     (-1) and rows with exactly RMAX runs occur.  -> (worst max_abs_err,
-    (ms, plain_ms) at the chunk shape)."""
+    (ms, plain_ms, bound) at the chunk shape)."""
     import torch
 
     from thermite_tpu_torch.ops.swg_stream import meta9
@@ -443,7 +617,7 @@ def phase_kernel_traceback(dev):
         swg_traceback_plain,
     )
 
-    worst, timing, seen = 0, (None, None), {}
+    worst, timing, seen = 0, (None, None, None), {}
     launches = swg_traceback.launches + swg_traceback_dense.launches
     cases = traceback_cases()
     for name, form, inputs, xm, ym, rmax in cases:
@@ -460,10 +634,14 @@ def phase_kernel_traceback(dev):
             bmax = int(inputs[2][:, 2].max())
             rows = len(inputs[2])
             kernel, plain = swg_traceback_dense, swg_traceback_dense_plain
+        launch = functools.partial(kernel, band_max=bmax)
         nbad, err, ms, plain_ms, got = compare_kernel(
-            args, reps=20 if rows == 65536 else 0,
-            kernel=functools.partial(kernel, band_max=bmax), plain=plain)
-        timing = (ms, plain_ms) if ms is not None else timing
+            args, reps=20 if rows == 65536 else 0, kernel=launch, plain=plain)
+        if ms is not None:  # the chunk shape, gather form
+            mhz, sms = sm_clock_mhz(lambda: launch(*args), ms)
+            bound = kernel_bound(args[:6], inputs[2], 4 + rmax, True, mhz, sms)
+            log_bound(name, ms, bound)
+            timing = (ms, plain_ms, bound)
         nr = got[:, 3]
         over, exact = int((nr == -1).sum()), int((nr == rmax).sum())
         s = seen.setdefault(rmax, [0, 0])
@@ -689,8 +867,10 @@ def _profile_run(aligner, recs):
 def phase_cpp_referee(aligner, recs):
     """One syn45 chunk: kernel == plain on its real rows (timed), and
     every certified row == the C++ full-band scalar SWG."""
+    import torch
+
     from thermite_tpu_torch.ops.layout import expand_stream_hdr
-    from thermite_tpu_torch.ops.swg_stream import swg_stream
+    from thermite_tpu_torch.ops.swg_stream import stream_group, swg_stream
 
     reads = [r[1] for r in recs]
     aligner._pin_shapes(reads)
@@ -723,16 +903,30 @@ def phase_cpp_referee(aligner, recs):
     words = aligner._ref_text()
     args = (words, words.shape[0], st.reads_dev, meta, aligner._XMAX,
             aligner._YMAX, aligner._SMAX)
-    kernel = functools.partial(swg_stream, band_max=int(sub[:, 7].max(initial=1)))
-    nbad, err, ms, plain_ms, _ = compare_kernel(args, reps=20, kernel=kernel)
+    bmax = int(sub[:, 7].max(initial=1))
+    kernel = functools.partial(swg_stream, band_max=bmax)
+    nbad, err, ms, plain_ms, got = compare_kernel(args, reps=20, kernel=kernel)
     log(f"  kernel vs plain on this chunk ({len(sub)} rows padded to "
         f"{aligner._NFWD1}, XMAX {aligner._XMAX} YMAX {aligner._YMAX} "
         f"SMAX {aligner._SMAX}): {nbad} differ, max_abs_err {err}, "
         f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
     check(nbad == 0, "kernel != plain on the syn45 chunk")
+    # its bound, and what the ragged warps cost: the pipeline's row order
+    # (by ylen) against the same rows shuffled
+    mhz, sms = sm_clock_mhz(lambda: kernel(*args), ms)
+    meta_np = meta.cpu().numpy()
+    bound = kernel_bound(args[:6], meta_np, got.shape[1], True, mhz, sms)
+    per_warp = 32 // stream_group(bmax, aligner._XMAX)[0]
+    log_bound("the syn45 chunk in the pipeline's row order", ms, bound, per_warp)
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(len(meta_np)))
+    shuffled = (*args[:3], meta[perm.to(meta.device)].contiguous(), *args[4:])
+    _, _, ms_sh, _, _ = compare_kernel(shuffled, reps=20, kernel=kernel)
+    log(f"  the same rows shuffled: kernel {ms_sh:.4f} ms ({ms_sh / ms:.2f} x), "
+        f"idle {100 * ragged_idle(bound['cols'][perm.numpy()], per_warp):.1f}% "
+        f"of group-columns")
     aligner.native.free_chunk(st.native_ch)
     st.native_ch = None
-    return err, ms, plain_ms, st
+    return err, st
 
 
 def phase_traceback_path(aligner, st):
@@ -1094,30 +1288,30 @@ def run(kernels_only: bool = False) -> dict:
 
     t = time.perf_counter()
     log("phase 2: packed stream kernel vs swg_stream_plain (bit-exact)")
-    worst1, _ = phase_kernel(dev)
+    worst1, time1 = phase_kernel(dev)
     log(f"phase 2 done in {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
     log("phase 2b: general-band stream kernel vs swg_stream_plain (bit-exact)")
     cases = general_band_cases()
-    worst2, (ms2, plain_ms2) = phase_kernel_wide(dev, cases)
+    worst2, time2 = phase_kernel_wide(dev, cases)
     log(f"phase 2b done in {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
     log("phase 2c: forward-scores kernel vs swg_forward_plain (bit-exact)")
-    worst3, (ms3, plain_ms3) = phase_kernel_forward(dev, cases)
+    worst3, time3 = phase_kernel_forward(dev, cases)
     log(f"phase 2c done in {time.perf_counter() - t:.1f} s")
     del cases
 
     t = time.perf_counter()
     log("phase 2d: run-length traceback kernel vs its plain versions "
         "(bit-exact)")
-    worst4, (ms4, plain_ms4) = phase_kernel_traceback(dev)
+    worst4, time4 = phase_kernel_traceback(dev)
     log(f"phase 2d done in {time.perf_counter() - t:.1f} s")
 
     launches = {"swg_stream": None, "swg_stream_wide": None,
                 "swg_forward": None, "swg_traceback": None}
-    err = ms = plain_ms = None
+    err = 0
     if not kernels_only:
         os.makedirs(os.path.join(ROOT, "data", "out"), exist_ok=True)
         with tempfile.TemporaryDirectory(
@@ -1153,7 +1347,7 @@ def run(kernels_only: bool = False) -> dict:
 
             t = time.perf_counter()
             log("phase 4: C++ full-band referee on one syn45 chunk")
-            err, ms, plain_ms, st = phase_cpp_referee(aligner, recs)
+            err, st = phase_cpp_referee(aligner, recs)
             log(f"phase 4 done in {time.perf_counter() - t:.1f} s")
 
             t = time.perf_counter()
@@ -1179,22 +1373,30 @@ def run(kernels_only: bool = False) -> dict:
             phase_entry_points(opts, aligner, tmp, recs, pairs, header, got)
             log(f"phase 6 done in {time.perf_counter() - t:.1f} s")
 
-    def record(name, source, replaces, worst, k_ms, p_ms):
+    def record(name, source, replaces, worst, timing):
+        """One kernel's line: its time, the plain version's and its bound
+        at the 65536-row chunk shape of its path (phases 2-2d), its
+        launches on its path's run.  No single PyTorch call computes a
+        banded affine-gap SWG with X-drop and traceback, so there is no
+        library time."""
+        k_ms, p_ms, bound = timing
         return {"name": name, "route": "cuda",
                 "source": f"thermite_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches[name],
-                "max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms}
+                "max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+                "library_ms": None}
 
     return {"kernels": [
         record("swg_stream", "swg_stream.cu",
                "thermite_tpu/ops/swg_pallas_packed.py:88",
-               max(worst1, err or 0), ms, plain_ms),
+               max(worst1, err), time1),
         record("swg_stream_wide", "swg_stream_wide.cu",
-               "thermite_tpu/ops/swg_pallas.py:409", worst2, ms2, plain_ms2),
+               "thermite_tpu/ops/swg_pallas.py:409", worst2, time2),
         record("swg_forward", "swg_forward.cu",
-               "thermite_tpu/ops/swg_pallas.py:185", worst3, ms3, plain_ms3),
+               "thermite_tpu/ops/swg_pallas.py:185", worst3, time3),
         record("swg_traceback", "swg_traceback.cu",
-               "thermite_tpu/ops/swg_pallas.py:244", worst4, ms4, plain_ms4),
+               "thermite_tpu/ops/swg_pallas.py:244", worst4, time4),
     ]}
 
 

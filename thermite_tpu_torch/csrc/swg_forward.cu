@@ -1,7 +1,7 @@
 // Banded SWG extension scores, one warp per problem, for Hopper
 // (sm_90a).
 //
-// Replaces thermite_tpu/ops/swg_pallas.py::make_forward_kernel (behind
+// Replaces the reference's make_forward_kernel (swg_pallas.py, behind
 // make_forward_gather_kernel): per problem it gathers the x and y windows
 // from the nibble-packed read block and text, runs the banded affine-gap
 // SWG with X-drop, and writes (N, 4) int32 rows [score, max_i, max_j, 0]
@@ -9,13 +9,14 @@
 // walk, no certificate.  It scores every nontrivial problem of a chunk
 // when the batch pipeline runs without the C++ engine.
 //
-// What bounds it on this card: the serial chain of columns, each a
-// dependent sequence of integer ops and warp shuffles (latency, not
-// bytes: a problem reads ~0.2 KB and writes 16 B).
+// What bounds it on this card: operations, not bytes (a problem reads
+// ~0.2 KB and writes 16 B): the serial chain of columns, about 12 integer
+// operations a band cell and a few warp shuffles a column.
 //
 // What the design does about it: the DP core of swg_dp.cuh without
-// directions (shared memory holds only the x and y codes, ~0.3 KB per
-// problem, so occupancy is set by registers), compiled for SLOTS in
+// directions at 32 lanes a problem (shared memory holds only the x and y
+// codes, ~0.3 KB per problem, so occupancy is set by registers), compiled
+// for SLOTS in
 // {1, 2, 4, 8, 16, 32}; a launch takes the smallest class covering
 // min(2*band_max + 1, XMAX + 1) slots.
 
@@ -26,7 +27,6 @@ namespace {
 using swg::Args;
 
 constexpr int WARPS = 4;      // problems per block
-constexpr int ERR_ARGS = -1;  // shapes the kernel does not take
 
 template <int SLOTS>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -36,14 +36,14 @@ __global__ void __launch_bounds__(WARPS * 32)
   const int64_t p = (int64_t)blockIdx.x * WARPS + warp;
   if (p >= a.n) return;  // whole warps only; no block barrier follows
   uint8_t* xs = reinterpret_cast<uint8_t*>(
-      smem + warp * swg::warp_smem_words(a.xmax, a.ymax, 0, 0));
-  uint8_t* ys = xs + 4 * ((a.xmax + 3) / 4);
+      smem + warp * swg::problem_smem_words(a.xmax, a.ymax, 0, 0, 0));
+  uint8_t* ys = xs + swg::x_window_bytes(a.xmax);
 
   const swg::Meta m = swg::unpack_meta(a.meta + p * a.meta_cols, a.meta_cols);
-  swg::gather_windows(m, a, xs, ys);
+  swg::gather_windows<32>(m, a, xs, ys);
   __syncwarp();
-  const swg::Best b = swg::dp<SLOTS, false>(m, xs, ys, nullptr, a.xmax,
-                                            a.ymax);
+  const swg::Best b = swg::dp<32, SLOTS, false>(m, xs, ys, nullptr, a.xmax,
+                                                a.ymax);
   if (lane == 0) {
     int32_t* out = a.hdr + 4 * p;
     out[0] = b.ms;
@@ -56,7 +56,7 @@ __global__ void __launch_bounds__(WARPS * 32)
 template <int SLOTS>
 int launch(const Args& a, cudaStream_t stream) {
   const size_t smem =
-      (size_t)WARPS * swg::warp_smem_words(a.xmax, a.ymax, 0, 0) * 4;
+      (size_t)WARPS * swg::problem_smem_words(a.xmax, a.ymax, 0, 0, 0) * 4;
   const int64_t blocks = (a.n + WARPS - 1) / WARPS;
   swg_forward_kernel<SLOTS>
       <<<(unsigned)blocks, WARPS * 32, smem, stream>>>(a);
@@ -83,6 +83,6 @@ extern "C" int thermite_swg_forward_launch(
     case 8: return launch<8>(a, s);
     case 16: return launch<16>(a, s);
     case 32: return launch<32>(a, s);
-    default: return ERR_ARGS;
+    default: return swg::ERR_ARGS;
   }
 }

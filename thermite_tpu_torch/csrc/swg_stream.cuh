@@ -1,7 +1,7 @@
 // Scalar pieces of the SWG kernels (swg_stream.cu, swg_stream_wide.cu,
 // swg_forward.cu, swg_traceback.cu) that run the same on the host and the
-// device: meta unpacking, the nibble gather, the slot class and
-// shared-memory sizing of a launch, the direction-plane layout, the
+// device: meta unpacking, the nibble gather, the group shape (lanes and
+// slots) and shared-memory sizing of a launch, the direction-plane layout, the
 // per-problem traceback walks (2-bit code packing, run-length runs), and
 // the header packing.  Compiled
 // by nvcc for the kernels and by g++ for the host test harness
@@ -19,7 +19,7 @@
 
 namespace swg {
 
-// Unit scoring of the reference (thermite_tpu/constants.py).
+// Unit scoring (constants.py).
 constexpr int32_t MATCH = 1;
 constexpr int32_t MISMATCH = -1;
 constexpr int32_t GAP_OPEN = -1;
@@ -82,49 +82,98 @@ __host__ __device__ __forceinline__ int nib_at(const int32_t* words,
   return (int)(((uint32_t)words[w] >> (4 * sub)) & 0xFu);
 }
 
-// Band slots per lane of a launch: the fewest (a power of two <= 32)
-// whose 32*SLOTS slots cover min(2*band_max + 1, xmax + 1).  Slots past
-// 2b are never computed, nor are slots past xlen <= xmax (a cell needs
-// row <= xlen), and neither is read by a computed slot or by the walk,
-// so no problem of the launch needs more.  0 when none suffices.
+// A problem is carried by a group of LANES lanes of a warp (8, 16 or 32:
+// a warp carries 32 / LANES problems) with SLOTS band slots each in
+// registers: band slot s lives on group lane s / SLOTS, register
+// s % SLOTS.  A launch needs LANES * SLOTS >= min(2*band_max + 1,
+// xmax + 1): slots past 2b are never computed, nor are slots past xlen <=
+// xmax (a cell needs row <= xlen), and neither is read by a computed slot
+// or by the walk, so no problem of the launch needs more.
+struct Group {
+  int lanes, slots;
+};
+
+__host__ __device__ inline int slots_needed(int band_max, int xmax) {
+  return 2 * band_max + 1 < xmax + 1 ? 2 * band_max + 1 : xmax + 1;
+}
+
+// Band slots per lane at 32 lanes a problem (the forward and run-length
+// traceback kernels): the fewest (a power of two <= 32) that cover the
+// launch.  0 when none suffices.
 __host__ __device__ inline int slots_for(int band_max, int xmax) {
-  const int need = 2 * band_max + 1 < xmax + 1 ? 2 * band_max + 1 : xmax + 1;
+  const int need = slots_needed(band_max, xmax);
   for (int s = 1; s <= 32; s *= 2)
     if (32 * s >= need) return s;
   return 0;
 }
 
-// Per-warp shared memory of a launch in 32-bit words: direction planes
-// (2*slots words per column 0..ymax), the walk's output (pw words: the
-// packed stream, or the traceback kernel's rmax runs), then the x and y
-// codes as bytes.  The forward kernel passes slots 0 and pw 0: codes
-// only.
-__host__ __device__ inline int warp_smem_words(int xmax, int ymax, int pw,
-                                               int slots) {
-  return (ymax + 1) * 2 * slots + pw + (xmax + 3) / 4 + (ymax + 3) / 4;
+// The group shape of a stream-kernel launch: the first class of the table
+// that covers the launch, four problems a warp while 32 slots do, two
+// while 64 do, then one (at 65..128 slots 32 x 4 timed faster than 16 x 8
+// on an H100).  `lanes` (16 or 32) asks for that many lanes where a class
+// of the table has them (a timing knob; 0 = the table's order).  {0, 0}
+// when none suffices.
+__host__ __device__ inline Group stream_group(int band_max, int xmax,
+                                              int lanes = 0) {
+  constexpr Group table[] = {{8, 4},  {16, 4},  {32, 4},
+                             {16, 8}, {32, 8},  {32, 16}, {32, 32}};
+  const int need = slots_needed(band_max, xmax);
+  Group first{0, 0};
+  for (const Group& g : table) {
+    if (g.lanes * g.slots < need) continue;
+    if (first.lanes == 0) first = g;
+    if (lanes == 0 || g.lanes == lanes) return g;
+  }
+  return first;
+}
+
+// Bytes in which a lane stores the 2-bit directions of its SLOTS slots of
+// one column: 1, 2, 4 or 8.
+__host__ __device__ constexpr int dir_bytes(int slots) {
+  return slots <= 4 ? 1 : (slots <= 8 ? 2 : (slots <= 16 ? 4 : 8));
+}
+
+// Bytes of the padded x window in shared memory: a zero before x[0] and
+// one after x[xmax - 1], rounded to words.
+__host__ __device__ constexpr int x_window_bytes(int xmax) {
+  return 4 * ((xmax + 2 + 3) / 4);
+}
+
+// Shared memory of one problem in 32-bit words, a multiple of two (8-byte
+// lane stores stay aligned): direction planes (lanes * dir_bytes(slots)
+// bytes per column 0..ymax), the walk's output (pw words: the packed
+// stream, or the traceback kernel's rmax runs), then the padded x codes
+// and the y codes as bytes.  The forward kernel passes lanes 0 and pw 0:
+// codes only.
+__host__ __device__ inline int problem_smem_words(int xmax, int ymax, int pw,
+                                                  int lanes, int slots) {
+  const int plane = ((ymax + 1) * lanes * dir_bytes(slots) + 3) / 4;
+  const int w = plane + pw + x_window_bytes(xmax) / 4 + (ymax + 3) / 4;
+  return (w + 1) & ~1;
 }
 
 // Shared memory a block may opt into on sm_90 (227 KB).
 constexpr int SMEM_OPTIN_BYTES = 232448;
 
-// Warps (problems) per block for `words` per warp: up to max_warps,
-// never more than the opt-in shared memory holds; 0 when one warp's
-// share does not fit.
+// Warps per block for `words` of shared memory per warp: up to max_warps,
+// never more than the opt-in shared memory holds; 0 when one warp's share
+// does not fit.
 __host__ __device__ inline int warps_per_block(int words, int max_warps) {
   const long long fit = SMEM_OPTIN_BYTES / (4LL * words);
   return (int)(fit < max_warps ? fit : max_warps);
 }
 
-// Direction planes of one problem: column j holds 2*SLOTS words; word
-// 2k+b has bit `lane` set when bit b of the direction at band slot
-// lane*SLOTS + k is set (one warp ballot per word).
-template <int SLOTS>
-__host__ __device__ __forceinline__ int dir_at(const uint32_t* planes, int j,
+// Direction planes of one problem: column j holds LANES cells of
+// dir_bytes(SLOTS) bytes, one per group lane, each stored by its own lane
+// (neighbouring lanes, neighbouring addresses); the direction of band slot
+// s is in cell s / SLOTS at bits 2 * (s % SLOTS), little-endian.
+template <int LANES, int SLOTS>
+__host__ __device__ __forceinline__ int dir_at(const uint8_t* planes, int j,
                                                int slot) {
-  const int lane = slot / SLOTS, k = slot % SLOTS;
-  const uint32_t* col = planes + (int64_t)j * 2 * SLOTS;
-  return (int)(((col[2 * k] >> lane) & 1u) |
-               (((col[2 * k + 1] >> lane) & 1u) << 1));
+  constexpr int BPL = dir_bytes(SLOTS);
+  const int k = slot % SLOTS;
+  const uint8_t* cell = planes + ((int64_t)j * LANES + slot / SLOTS) * BPL;
+  return (cell[k >> 2] >> (2 * (k & 3))) & 3;
 }
 
 // Code d of walk step c into the packed stream: word c/16, bits
@@ -145,8 +194,8 @@ struct WalkEnd {
 // its code, and moves: M/S consume x and y, I consumes x, D consumes y.
 // `words` (pw zeroed words) receives the codes.  A walk that has not
 // reached the origin after smax + 1 steps is stopped and flagged bad.
-template <int SLOTS>
-__host__ __device__ inline WalkEnd walk(const uint32_t* planes, int mi, int mj,
+template <int LANES, int SLOTS>
+__host__ __device__ inline WalkEnd walk(const uint8_t* planes, int mi, int mj,
                                         int band, int smax, uint32_t* words,
                                         int pw) {
   int i = mi, j = mj, c = 0;
@@ -154,7 +203,7 @@ __host__ __device__ inline WalkEnd walk(const uint32_t* planes, int mi, int mj,
     const int row0 = j > band ? j - band : 0;
     int bi = i - row0;
     bi = bi < 0 ? 0 : (bi > 2 * band ? 2 * band : bi);
-    const int d = dir_at<SLOTS>(planes, j, bi);
+    const int d = dir_at<LANES, SLOTS>(planes, j, bi);
     put_code(words, pw, c, d);
     if (d <= DIR_SUBST || d == DIR_INS) --i;
     if (d <= DIR_SUBST || d == DIR_DEL) --j;
@@ -166,15 +215,15 @@ __host__ __device__ inline WalkEnd walk(const uint32_t* planes, int mi, int mj,
 // Run-length encoding of one run: (op << 28) | length.
 constexpr int RUN_OP_SHIFT = 28;
 
-// The run-length traceback of kernel 4 (thermite_tpu/ops/swg_pallas.py::
+// The run-length traceback of kernel 4 (the reference's
 // make_traceback_kernel, its walk_pair): the same steps as `walk`, from
 // (mi, mj), at most `steps` of them (the kernel shape's XMAX + YMAX + 2).
 // A run is emitted on each op change (M and S are different ops) and
 // after the last step, into runs[nr] while nr < rmax; runs past rmax are
 // counted, not written.  -> nruns, or -1 when more than rmax runs were
 // needed or the walk did not reach the origin within `steps`.
-template <int SLOTS>
-__host__ __device__ inline int walk_runs(const uint32_t* planes, int mi, int mj,
+template <int LANES, int SLOTS>
+__host__ __device__ inline int walk_runs(const uint8_t* planes, int mi, int mj,
                                          int band, int steps, int rmax,
                                          int32_t* runs) {
   int i = mi, j = mj, cur_op = -1, cur_len = 0, nr = 0;
@@ -182,7 +231,7 @@ __host__ __device__ inline int walk_runs(const uint32_t* planes, int mi, int mj,
     const int row0 = j > band ? j - band : 0;
     int bi = i - row0;
     bi = bi < 0 ? 0 : (bi > 2 * band ? 2 * band : bi);
-    const int d = dir_at<SLOTS>(planes, j, bi);
+    const int d = dir_at<LANES, SLOTS>(planes, j, bi);
     if (d != cur_op && cur_len > 0) {
       if (nr < rmax) runs[nr] = (cur_op << RUN_OP_SHIFT) | cur_len;
       ++nr;

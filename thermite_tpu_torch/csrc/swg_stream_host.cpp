@@ -1,6 +1,6 @@
 // Host build of the scalar pieces of swg_stream.cuh, with a plain C
 // interface for tests/test_torch_kernel_host.py: g++ compiles the same
-// meta unpacking, nibble gather, slot classes and shared-memory sizing,
+// meta unpacking, nibble gather, group shapes and shared-memory sizing,
 // direction-plane reads, traceback walks (packed codes and run-length
 // runs), code packing and header packing that the CUDA kernels run, so
 // they are held against the plain PyTorch versions without a GPU.
@@ -38,36 +38,108 @@ int thermite_swg_host_slots_for(int band_max, int xmax) {
   return swg::slots_for(band_max, xmax);
 }
 
-// -> per-warp shared-memory words; *warps gets the warps per block.
-int thermite_swg_host_smem(int xmax, int ymax, int pw, int slots,
+// -> lanes * 100 + slots of the stream kernels' group shape (0: none).
+int thermite_swg_host_stream_group(int band_max, int xmax, int lanes) {
+  const swg::Group g = swg::stream_group(band_max, xmax, lanes);
+  return g.lanes * 100 + g.slots;
+}
+
+// -> shared-memory words of one problem; *warps gets the warps per block
+// when a warp carries 32 / lanes problems (lanes 0: one, no planes).
+int thermite_swg_host_smem(int xmax, int ymax, int pw, int lanes, int slots,
                            int max_warps, int* warps) {
-  const int words = swg::warp_smem_words(xmax, ymax, pw, slots);
-  *warps = swg::warps_per_block(words, max_warps);
+  const int words = swg::problem_smem_words(xmax, ymax, pw, lanes, slots);
+  *warps = swg::warps_per_block((lanes ? 32 / lanes : 1) * words, max_warps);
   return words;
 }
 
-// Walk + header for n problems.  planes: (n, ymax+1, 2*slots) uint32 in
-// the kernel's shared-memory layout; hdr (n, 2) and streams (n, smax/16)
-// are written like the kernel writes them.
-int thermite_swg_host_walk(const uint32_t* planes, int slots, int ymax,
-                           const int32_t* ms, const int32_t* mi,
+}  // extern "C"
+
+namespace {
+
+// fn<LANES, SLOTS> for a group shape the kernels instantiate, else null.
+#define SWG_GROUP_CASE(L, S) \
+  case L * 100 + S: return &Fn::template call<L, S>;
+template <class Fn>
+typename Fn::type for_group(int lanes, int slots) {
+  switch (lanes * 100 + slots) {
+    SWG_GROUP_CASE(8, 4)
+    SWG_GROUP_CASE(16, 4)
+    SWG_GROUP_CASE(16, 8)
+    SWG_GROUP_CASE(32, 1)
+    SWG_GROUP_CASE(32, 2)
+    SWG_GROUP_CASE(32, 4)
+    SWG_GROUP_CASE(32, 8)
+    SWG_GROUP_CASE(32, 16)
+    SWG_GROUP_CASE(32, 32)
+    default: return nullptr;
+  }
+}
+#undef SWG_GROUP_CASE
+
+struct DirAt {
+  using type = int (*)(const uint8_t*, int, int);
+  template <int L, int S>
+  static int call(const uint8_t* planes, int j, int slot) {
+    return swg::dir_at<L, S>(planes, j, slot);
+  }
+};
+
+struct Walk {
+  using type = swg::WalkEnd (*)(const uint8_t*, int, int, int, int, uint32_t*,
+                                int);
+  template <int L, int S>
+  static swg::WalkEnd call(const uint8_t* planes, int mi, int mj, int band,
+                           int smax, uint32_t* words, int pw) {
+    return swg::walk<L, S>(planes, mi, mj, band, smax, words, pw);
+  }
+};
+
+struct WalkRuns {
+  using type = int (*)(const uint8_t*, int, int, int, int, int, int32_t*);
+  template <int L, int S>
+  static int call(const uint8_t* planes, int mi, int mj, int band, int steps,
+                  int rmax, int32_t* runs) {
+    return swg::walk_runs<L, S>(planes, mi, mj, band, steps, rmax, runs);
+  }
+};
+
+int64_t plane_bytes(int ymax, int lanes, int slots) {
+  return (int64_t)(ymax + 1) * lanes * swg::dir_bytes(slots);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Every direction of n problems' planes: planes (n, ymax+1, lanes,
+// dir_bytes(slots)) bytes in the kernel's shared-memory layout -> out
+// (n, ymax+1, lanes*slots) codes.
+int thermite_swg_host_dir_at(const uint8_t* planes, int lanes, int slots,
+                             int ymax, int64_t n, uint8_t* out) {
+  const DirAt::type fn = for_group<DirAt>(lanes, slots);
+  if (!fn) return -1;
+  const int L = lanes * slots;
+  for (int64_t p = 0; p < n; ++p)
+    for (int j = 0; j <= ymax; ++j)
+      for (int s = 0; s < L; ++s)
+        out[(p * (ymax + 1) + j) * L + s] =
+            (uint8_t)fn(planes + p * plane_bytes(ymax, lanes, slots), j, s);
+  return 0;
+}
+
+// Walk + header for n problems.  planes as for thermite_swg_host_dir_at;
+// hdr (n, 2) and streams (n, smax/16) are written like the kernel writes
+// them.
+int thermite_swg_host_walk(const uint8_t* planes, int lanes, int slots,
+                           int ymax, const int32_t* ms, const int32_t* mi,
                            const int32_t* mj, const int32_t* band,
                            const uint8_t* cert, int64_t n, int smax,
                            int32_t* hdr, int32_t* streams) {
-  using Walk = swg::WalkEnd (*)(const uint32_t*, int, int, int, int,
-                                uint32_t*, int);
-  Walk fn;
-  switch (slots) {
-    case 1: fn = swg::walk<1>; break;
-    case 2: fn = swg::walk<2>; break;
-    case 4: fn = swg::walk<4>; break;
-    case 8: fn = swg::walk<8>; break;
-    case 16: fn = swg::walk<16>; break;
-    case 32: fn = swg::walk<32>; break;
-    default: return -1;
-  }
+  const Walk::type fn = for_group<Walk>(lanes, slots);
+  if (!fn) return -1;
   const int pw = smax / 16;
-  const int64_t per = (int64_t)(ymax + 1) * 2 * slots;
+  const int64_t per = plane_bytes(ymax, lanes, slots);
   for (int64_t p = 0; p < n; ++p) {
     uint32_t* words = reinterpret_cast<uint32_t*>(streams + p * pw);
     for (int w = 0; w < pw; ++w) words[w] = 0;
@@ -79,25 +151,17 @@ int thermite_swg_host_walk(const uint32_t* planes, int slots, int ymax,
   return 0;
 }
 
-// Run walk for n problems (planes as for thermite_swg_host_walk): runs
+// Run walk for n problems (planes as for thermite_swg_host_dir_at): runs
 // (n, rmax) receive each walk's first rmax runs (nothing else is
 // written), nruns (n,) the walk's count or -1.
-int thermite_swg_host_walk_runs(const uint32_t* planes, int slots, int ymax,
-                                const int32_t* mi, const int32_t* mj,
-                                const int32_t* band, int64_t n, int steps,
-                                int rmax, int32_t* runs, int32_t* nruns) {
-  using Walk = int (*)(const uint32_t*, int, int, int, int, int, int32_t*);
-  Walk fn;
-  switch (slots) {
-    case 1: fn = swg::walk_runs<1>; break;
-    case 2: fn = swg::walk_runs<2>; break;
-    case 4: fn = swg::walk_runs<4>; break;
-    case 8: fn = swg::walk_runs<8>; break;
-    case 16: fn = swg::walk_runs<16>; break;
-    case 32: fn = swg::walk_runs<32>; break;
-    default: return -1;
-  }
-  const int64_t per = (int64_t)(ymax + 1) * 2 * slots;
+int thermite_swg_host_walk_runs(const uint8_t* planes, int lanes, int slots,
+                                int ymax, const int32_t* mi,
+                                const int32_t* mj, const int32_t* band,
+                                int64_t n, int steps, int rmax, int32_t* runs,
+                                int32_t* nruns) {
+  const WalkRuns::type fn = for_group<WalkRuns>(lanes, slots);
+  if (!fn) return -1;
+  const int64_t per = plane_bytes(ymax, lanes, slots);
   for (int64_t p = 0; p < n; ++p)
     nruns[p] = fn(planes + p * per, mi[p], mj[p], band[p], steps, rmax,
                   runs + p * rmax);

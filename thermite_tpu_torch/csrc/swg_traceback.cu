@@ -1,7 +1,7 @@
 // Banded SWG extension with a run-length traceback, one warp per problem,
 // for Hopper (sm_90a).
 //
-// Replaces thermite_tpu/ops/swg_pallas.py::make_traceback_kernel and its
+// Replaces the reference's make_traceback_kernel (swg_pallas.py) and its
 // gather front end make_traceback_gather_kernel: per problem the forward
 // pass with directions, then a scalar walk from the best cell that emits
 // run-length runs (op << 28) | len (op 0-3 = M, S, D, I) in backward walk
@@ -18,15 +18,18 @@
 //   pre-shifted rows [0, x...], y (n, YMAX) uint8, params (n, 4) int32
 //   [xlen, ylen, band, x_drop]; raw bytes are compared.
 //
-// What bounds it on this card: as for the stream kernels, the serial
-// chain of columns (integer ALU and shuffle latency per column), then the
-// scalar walk on one lane (at most XMAX + YMAX + 2 steps, each a shared-
-// memory read).  Shared memory per problem: the direction planes,
-// 2*SLOTS words per column, plus rmax run words and the windows.
+// What bounds it on this card: operations, as for the stream kernels (the
+// serial chain of columns, about 15 integer operations a band cell), then
+// the scalar walk on one lane (at most XMAX + YMAX + 2 steps, each a
+// shared-memory read).  Shared memory per problem: the direction planes,
+// 32 * dir_bytes(SLOTS) bytes per column, plus rmax run words and the
+// windows.
 //
 // What the design does about it: the DP core of swg_dp.cuh with
-// directions, compiled for SLOTS in {1, 2, 4, 8, 16, 32}; a launch takes
-// the smallest class that covers min(2*band_max + 1, XMAX + 1) slots.  The
+// directions at 32 lanes a problem (each lane stores the directions of its
+// own slots, no ballots), compiled for SLOTS in {1, 2, 4, 8, 16, 32}; a
+// launch takes the smallest class that covers min(2*band_max + 1, XMAX + 1)
+// slots.  The
 // runs are staged in shared memory and copied out by the whole warp, so
 // each problem writes one contiguous zero-filled row.  Warps per block
 // follow from the per-warp shared memory; a shape whose one warp does not
@@ -40,7 +43,7 @@ namespace {
 using swg::Args;
 
 constexpr int MAX_WARPS = 4;  // problems per block, at most
-constexpr int ERR_ARGS = -1;  // shapes the kernel does not take
+using swg::ERR_ARGS;
 
 struct TbArgs {
   Args g;                 // n, xmax, ymax; the gather form's inputs
@@ -54,7 +57,8 @@ struct TbArgs {
 };
 
 // The dense form's windows into shared memory: x from column 1 of its
-// pre-shifted row, y as it is; one lane per position.
+// pre-shifted row (padded as gather_windows pads it), y as it is; one
+// lane per position.
 __device__ __forceinline__ void dense_windows(const swg::Meta& m,
                                               const TbArgs& a, int64_t p,
                                               uint8_t* xs, uint8_t* ys) {
@@ -62,7 +66,8 @@ __device__ __forceinline__ void dense_windows(const swg::Meta& m,
   const int nx = min(m.xlen, a.g.xmax), ny = min(m.ylen, a.g.ymax);
   const uint8_t* xr = a.x + p * a.x_stride + 1;
   const uint8_t* yr = a.y + p * a.y_stride;
-  for (int k = lane; k < nx; k += 32) xs[k] = xr[k];
+  if (lane == 0) xs[0] = xs[nx + 1] = 0;  // the padded window of swg_dp.cuh
+  for (int k = lane; k < nx; k += 32) xs[k + 1] = xr[k];
   for (int k = lane; k < ny; k += 32) ys[k] = yr[k];
 }
 
@@ -74,11 +79,13 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
   const int64_t p = (int64_t)blockIdx.x * warps + warp;
   if (p >= a.g.n) return;  // whole warps only; no block barrier follows
   const int xmax = a.g.xmax, ymax = a.g.ymax;
-  uint32_t* planes =
-      smem + warp * swg::warp_smem_words(xmax, ymax, a.rmax, SLOTS);
-  int32_t* runs = reinterpret_cast<int32_t*>(planes + (ymax + 1) * 2 * SLOTS);
+  uint32_t* base =
+      smem + warp * swg::problem_smem_words(xmax, ymax, a.rmax, 32, SLOTS);
+  uint8_t* planes = reinterpret_cast<uint8_t*>(base);
+  int32_t* runs = reinterpret_cast<int32_t*>(
+      base + (ymax + 1) * 8 * swg::dir_bytes(SLOTS));
   uint8_t* xs = reinterpret_cast<uint8_t*>(runs + a.rmax);
-  uint8_t* ys = xs + 4 * ((xmax + 3) / 4);
+  uint8_t* ys = xs + swg::x_window_bytes(xmax);
 
   swg::Meta m;
   if (DENSE) {
@@ -92,13 +99,14 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
     dense_windows(m, a, p, xs, ys);
   } else {
     m = swg::unpack_meta(a.g.meta + p * a.g.meta_cols, a.g.meta_cols);
-    swg::gather_windows(m, a.g, xs, ys);
+    swg::gather_windows<32>(m, a.g, xs, ys);
   }
   for (int k = lane; k < a.rmax; k += 32) runs[k] = 0;
   __syncwarp();
-  const swg::Best b = swg::dp<SLOTS, true>(m, xs, ys, planes, xmax, ymax);
+  const swg::Best b = swg::dp<32, SLOTS, true>(m, xs, ys, planes, xmax, ymax);
+  __syncwarp();
   if (lane == 0) {
-    const int nr = swg::walk_runs<SLOTS>(planes, b.mi, b.mj, m.band,
+    const int nr = swg::walk_runs<32, SLOTS>(planes, b.mi, b.mj, m.band,
                                          xmax + ymax + 2, a.rmax, runs);
     int32_t* out = a.meta_out + 4 * p;
     out[0] = b.ms;
@@ -113,7 +121,8 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
 
 template <int SLOTS, bool DENSE>
 int launch(const TbArgs& a, cudaStream_t stream) {
-  const int words = swg::warp_smem_words(a.g.xmax, a.g.ymax, a.rmax, SLOTS);
+  const int words =
+      swg::problem_smem_words(a.g.xmax, a.g.ymax, a.rmax, 32, SLOTS);
   const int warps = swg::warps_per_block(words, MAX_WARPS);
   if (warps < 1) return ERR_ARGS;
   const size_t smem = (size_t)warps * words * 4;

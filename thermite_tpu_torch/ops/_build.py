@@ -40,10 +40,10 @@ _p, _i64, _i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _LAUNCH = {
     "swg_stream": {"thermite_swg_stream_launch":
                    [_p, _i64, _p, _i64, _p, _i32, _i64, _i32, _i32, _i32,
-                    _p, _p, _p]},
+                    _i32, _p, _p, _p]},
     "swg_stream_wide": {"thermite_swg_stream_wide_launch":
                         [_p, _i64, _p, _i64, _p, _i32, _i64, _i32, _i32,
-                         _i32, _i32, _p, _p, _p]},
+                         _i32, _i32, _i32, _p, _p, _p]},
     "swg_forward": {"thermite_swg_forward_launch":
                     [_p, _i64, _p, _i64, _p, _i32, _i64, _i32, _i32, _i32,
                      _p, _p]},

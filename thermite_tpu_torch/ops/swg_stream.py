@@ -24,7 +24,8 @@ might differ; the batch pipeline recomputes those rows at full band).
 For a CUDA tensor the wrapper launches a hand-written kernel: bands up
 to 31 ``csrc/swg_stream.cu`` (counted in ``swg_stream.launches``), wider
 bands ``csrc/swg_stream_wide.cu`` through ``swg_stream_wide`` (counted
-there).  For a CPU tensor it runs ``swg_stream_plain``, the plain
+there).  Both run problems as sub-warp groups (``stream_group``): 8
+lanes x 4 band slots at band <= 15, four problems a warp.  For a CPU tensor it runs ``swg_stream_plain``, the plain
 PyTorch version of the same function, which is also the referee the
 card's kernels are held against.
 """
@@ -53,18 +54,28 @@ from .layout import (
     _WPAD,
 )
 
-PACKED_BAND_MAX = 31  # csrc/swg_stream.cu: at most two band slots per lane
+PACKED_BAND_MAX = 31  # csrc/swg_stream.cu: groups of 8 or 16 lanes x 4 slots
+
+# Group shapes (lanes a problem, band slots a lane) of the stream kernels,
+# in the order a launch tries them (``stream_group`` in csrc/swg_stream.cuh).
+STREAM_GROUPS = ((8, 4), (16, 4), (32, 4), (16, 8), (32, 8), (32, 16), (32, 32))
+
+
+def slots_needed(band_max: int, XMAX: int) -> int:
+    """Band slots a launch must hold: min(2*band_max + 1, XMAX + 1).
+    Slots past 2b are never computed, nor are slots past row xlen <= XMAX,
+    and neither is read by a computed slot or by the walk, so the DP of
+    every problem with xlen <= XMAX is the same at any wider slot count
+    (the reference computes W = roundup(2b+1, 128) lanes)."""
+    return min(2 * band_max + 1, XMAX + 1)
 
 
 def slots_per_lane(band_max: int, XMAX: int) -> int:
-    """Band slots per lane of a warp for a launch: the fewest (a power of
-    two, at most 32) whose 32*SLOTS slots cover min(2*band_max + 1,
-    XMAX + 1).  Slots past 2b are never computed, nor are slots past row
-    xlen <= XMAX, and neither is read by a computed slot or by the walk,
-    so the DP of every problem with xlen <= XMAX is the same at any wider
-    slot count (the reference computes W = roundup(2b+1, 128) lanes).
-    Same rule as ``slots_for`` in csrc/swg_stream.cuh."""
-    need = min(2 * band_max + 1, XMAX + 1)
+    """Band slots per lane at 32 lanes a problem (the forward and
+    run-length traceback kernels): the fewest (a power of two, at most 32)
+    whose 32*SLOTS slots cover ``slots_needed``.  Same rule as
+    ``slots_for`` in csrc/swg_stream.cuh."""
+    need = slots_needed(band_max, XMAX)
     s = 1
     while 32 * s < need:
         s *= 2
@@ -73,9 +84,40 @@ def slots_per_lane(band_max: int, XMAX: int) -> int:
     return s
 
 
+def stream_group(band_max: int, XMAX: int, lanes: int = 0):
+    """(lanes, slots) of a stream-kernel launch: a problem takes ``lanes``
+    lanes of a warp with ``slots`` band slots each, and a warp carries
+    32 // lanes problems.  The first shape of ``STREAM_GROUPS`` that covers
+    ``slots_needed``; ``lanes`` (16 or 32) asks for that many lanes where
+    a covering shape has them.  Same rule as ``stream_group`` in
+    csrc/swg_stream.cuh."""
+    need = slots_needed(band_max, XMAX)
+    fits = [g for g in STREAM_GROUPS if g[0] * g[1] >= need]
+    if not fits:
+        raise ValueError(f"no group shape covers {need} slots (XMAX {XMAX})")
+    return next((g for g in fits if lanes in (0, g[0])), fits[0])
+
+
+def dir_bytes(slots: int) -> int:
+    """Bytes in which a lane stores the 2-bit directions of its slots of
+    one column (``dir_bytes`` in csrc/swg_stream.cuh)."""
+    return 1 if slots <= 4 else 2 if slots <= 8 else 4 if slots <= 16 else 8
+
+
+def problem_smem_words(XMAX: int, YMAX: int, pw: int, lanes: int,
+                       slots: int) -> int:
+    """Shared memory of one problem in 32-bit words (``problem_smem_words``
+    in csrc/swg_stream.cuh): direction planes, ``pw`` words of walk
+    output, the x codes (padded by a zero at each end) and the y codes as
+    bytes; a multiple of two."""
+    plane = ((YMAX + 1) * lanes * dir_bytes(slots) + 3) // 4
+    w = plane + pw + (XMAX + 2 + 3) // 4 + (YMAX + 3) // 4
+    return (w + 1) & ~1
+
+
 def stream_slots(band_max: int, XMAX: int) -> int:
-    """Slots per lane of the stream kernel that serves ``band_max``: the
-    general kernel's narrowest class is 4."""
+    """Band slots of the plain version, in units of 32: any span that
+    covers ``slots_needed`` gives the same rows."""
     s = slots_per_lane(band_max, XMAX)
     return s if band_max <= PACKED_BAND_MAX else max(s, 4)
 
@@ -134,12 +176,16 @@ def _windows(ref_nib, reads_nib, m9, XMAX: int, YMAX: int):
     return x, y
 
 
-def _forward_plain(x, y, xlen, ylen, band, xdrop, L: int, want_dirs=True):
+def _forward_plain(x, y, xlen, ylen, band, xdrop, L: int, want_dirs=True,
+                   work=None):
     """Banded DP over L band slots per problem (slot t = row row0 + t of
     column j, row0 = max(j - band, 0)).
 
     Returns (ms, mi, mj, cert, dirs) with dirs (N, YMAX+1, L) int8, or
-    None without ``want_dirs``."""
+    None without ``want_dirs``.  ``work``, a dict, receives the work this
+    data needs: ``cols`` (N,) the columns computed before each problem
+    ended (ylen reached, or X-drop) and ``cells`` (N,) the band cells
+    computed in them."""
     dev = x.device
     N, YMAX = y.shape
     i32 = torch.int32
@@ -172,6 +218,9 @@ def _forward_plain(x, y, xlen, ylen, band, xdrop, L: int, want_dirs=True):
     te = t * e
     tz = t == 0
 
+    if work is not None:
+        work["cols"] = torch.zeros(N, dtype=torch.int64, device=dev)
+        work["cells"] = torch.zeros(N, dtype=torch.int64, device=dev)
     maxy = min(int(torch.clamp(ylen, max=YMAX).max()) if N else 0, YMAX)
     for j in range(1, maxy + 1):
         in_p1 = (j <= band)[:, None]
@@ -205,6 +254,9 @@ def _forward_plain(x, y, xlen, ylen, band, xdrop, L: int, want_dirs=True):
         D_new = torch.maximum(A, r_val)
 
         mask = computed & active
+        if work is not None:
+            work["cols"] += active[:, 0]
+            work["cells"] += mask.sum(1)
         D = torch.where(mask, D_new, D).to(i32)
         C = torch.where(mask, c_val, C).to(i32)
         if want_dirs:
@@ -293,6 +345,22 @@ def swg_stream_plain(ref_nib, ref_lw, reads_nib, meta, XMAX: int, YMAX: int,
     if fused:
         return torch.cat([torch.stack([ms, mi, mj, ns], 1), streams], 1)
     return pack_stream_hdr(ms, mi, mj, ns), streams
+
+
+def dp_work_plain(ref_nib, ref_lw, reads_nib, meta, XMAX: int, YMAX: int):
+    """The work the DP of these problems needs, counted by the plain
+    forward pass: (cols (N,), cells (N,)) int64, the columns computed
+    until each problem ended and the band cells computed in them.  A
+    kernel's operation bound is cells x the recurrence's operations."""
+    _check(ref_nib, ref_lw, reads_nib, meta, XMAX, YMAX)
+    m9 = meta9(meta)
+    x, y = _windows(ref_nib[:ref_lw], reads_nib, m9, XMAX, YMAX)
+    xlen, ylen, band, xdrop = (m9[:, k] for k in (6, 3, 7, 8))
+    bmax = int(band.max()) if len(band) else 0
+    work: dict = {}
+    _forward_plain(x, y, xlen, ylen, band, xdrop,
+                   32 * slots_per_lane(bmax, XMAX), want_dirs=False, work=work)
+    return work["cols"], work["cells"]
 
 
 def _check(ref_nib, ref_lw, reads_nib, meta, XMAX, YMAX, SMAX=16) -> None:
@@ -386,7 +454,7 @@ def swg_stream(ref_nib, ref_lw, reads_nib, meta, XMAX: int, YMAX: int,
         if meta.shape[0]:
             err = kernel_lib("swg_stream").thermite_swg_stream_launch(
                 *_launch_args(ref_nib, ref_lw, reads_nib, meta),
-                XMAX, YMAX, SMAX,
+                XMAX, YMAX, SMAX, bmax,
                 ctypes.c_void_p(hdr.data_ptr()),
                 ctypes.c_void_p(streams.data_ptr()), _current_stream(meta),
             )
@@ -399,11 +467,13 @@ swg_stream.launches = 0
 
 
 def swg_stream_wide(ref_nib, ref_lw, reads_nib, meta, XMAX: int, YMAX: int,
-                    SMAX: int, band_max: int):
+                    SMAX: int, band_max: int, lanes: int = 0):
     """The general-band stream kernel (``csrc/swg_stream_wide.cu``),
-    split outputs as ``swg_stream``: for any band, with 32*SLOTS band
-    slots per problem (``stream_slots``).  ``swg_stream`` routes bands
-    above 31 here.  CPU tensors run ``swg_stream_plain``."""
+    split outputs as ``swg_stream``: for any band, in the group shape
+    ``stream_group(band_max, XMAX, lanes)``.  ``swg_stream`` routes bands
+    above 31 here.  ``lanes`` (16 or 32) picks among the shapes that
+    cover the launch (the rows do not depend on it; 0 is the default
+    order).  CPU tensors run ``swg_stream_plain``."""
     if meta.device.type != "cuda":
         return swg_stream_plain(ref_nib, ref_lw, reads_nib, meta, XMAX,
                                 YMAX, SMAX)
@@ -414,7 +484,7 @@ def swg_stream_wide(ref_nib, ref_lw, reads_nib, meta, XMAX: int, YMAX: int,
     if meta.shape[0]:
         err = kernel_lib("swg_stream_wide").thermite_swg_stream_wide_launch(
             *_launch_args(ref_nib, ref_lw, reads_nib, meta),
-            XMAX, YMAX, SMAX, int(band_max),
+            XMAX, YMAX, SMAX, int(band_max), int(lanes),
             ctypes.c_void_p(hdr.data_ptr()),
             ctypes.c_void_p(streams.data_ptr()), _current_stream(meta),
         )

@@ -50,6 +50,7 @@ from .swg_stream import (
     _windows,
     band_max_of,
     meta9,
+    problem_smem_words,
     raise_for_launch,
     slots_per_lane,
 )
@@ -60,10 +61,10 @@ SMEM_OPTIN_BYTES = 232448
 
 def traceback_smem_bytes(XMAX: int, YMAX: int, RMAX: int, slots: int) -> int:
     """Shared memory of one problem (one warp) of the kernel: direction
-    planes (2*slots words per column 0..YMAX), RMAX run words, then the
-    x and y windows as bytes (``warp_smem_words`` in swg_stream.cuh)."""
-    return 4 * ((YMAX + 1) * 2 * slots + RMAX + (XMAX + 3) // 4
-                + (YMAX + 3) // 4)
+    planes (32 lanes x ``dir_bytes(slots)`` bytes per column 0..YMAX),
+    RMAX run words, then the x and y windows as bytes
+    (``problem_smem_words`` in swg_stream.cuh)."""
+    return 4 * problem_smem_words(XMAX, YMAX, RMAX, 32, slots)
 
 
 def _walk_runs_plain(dirs, mi, mj, band, steps: int, RMAX: int):

@@ -18,7 +18,7 @@ Task/selected array layouts mirror the C++ enums:
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
 import numpy as np
 

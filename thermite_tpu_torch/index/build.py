@@ -22,7 +22,6 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..constants import SENTINEL
 from ..io.fastx import parse_fastx, revcomp
 from ..io.gtf import parse_gtf
 from .txome import Exon, Gene, IntervalTable, Tx, Txome

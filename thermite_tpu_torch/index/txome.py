@@ -15,11 +15,11 @@ gathers from device memory.  See ``IntervalTable``.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from ..align.types import Alignment, Mem, OP_DEL, OP_INS, OP_MATCH, OP_SUBST, yclip
+from ..align.types import Alignment, Mem, OP_DEL, OP_MATCH, OP_SUBST, yclip
 
 
 @dataclass

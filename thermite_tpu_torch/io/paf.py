@@ -12,7 +12,7 @@ Field quirks preserved exactly:
 from __future__ import annotations
 
 from ..align.types import GenomeAlignment, OP_MATCH, YCLIP
-from .sam import format_read_name, multimapq
+from .sam import multimapq
 
 
 def paf_line(

@@ -16,14 +16,12 @@ from typing import List, Optional, Tuple
 from ..align.types import (
     EXONIC,
     GenomeAlignment,
-    INTERGENIC,
     INTRONIC,
     OP_DEL,
     OP_INS,
     OP_MATCH,
     OP_SUBST,
     XCLIP,
-    YCLIP,
 )
 from .fastx import revcomp
 

@@ -15,7 +15,7 @@ alphabet "ACGNT" (src/index.rs:108): 'N' in the text matches a literal
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 

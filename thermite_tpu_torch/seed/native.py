@@ -8,8 +8,7 @@ first use (``ops/_build.py::native_engine``).  ``NativeSmemEngine`` is output-id
 from __future__ import annotations
 
 import ctypes
-import os
-from typing import List, Optional
+from typing import List
 
 import numpy as np
 

@@ -12,7 +12,7 @@ read name so accuracy can be scored against ground truth
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
 import numpy as np
 

@@ -5,12 +5,14 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --kernels-only  # phases 1, 2, 2b, 2c and 2d
+    python3 chip_smoke.py --time-kernels OUT.json  # no phases: kernel times
 
 Phases, each printed with its own timing; any failure exits non-zero
 before the result lines are printed:
 
-1. require CUDA; print the card's name and power limit; build the four
-   CUDA kernels (one nvcc each, in parallel, sm_90a) and the port's own
+1. require CUDA; print the card's name and power limit; build the CUDA
+   kernels (one nvcc for each source, in parallel, sm_90a; both stream
+   kernels are one source) and the port's own
    C++ host engine (g++, into thermite_tpu_torch/_build/); print the
    registers and spills of every kernel.
 2. swg_stream's packed kernel (bands <= 31) == swg_stream_plain
@@ -28,8 +30,7 @@ before the result lines are printed:
    bands <= 63, <= 127 and <= 255 in both meta forms (windows up to 512
    for the widest), bands above XMAX (up to 1023 slots), and the
    full-band chunk shape (65536 rows, XMAX 96, YMAX 160, band 60, SMAX
-   256), with both times and the bound; the boundary shapes and the chunk
-   shape again with 32 and with 16 lanes asked for.
+   256), with both times and the bound.
 2c. the forward-scores kernel (swg_forward) == swg_forward_plain,
    bit-exact, on the same kinds of shapes, with both times at the
    full-band chunk shape.
@@ -80,8 +81,20 @@ Every timed kernel is printed beside its bound: the larger of its
 integer operations (cells the plain version computes on the same inputs x
 OPS_PER_CELL) over the card's INT32 rate at the SM clock read under load,
 and its bytes over the memory rate.  The last lines are one JSON object of
-kernel records and one JSON object naming the device.  Nothing of JAX or
+kernel records and one JSON object naming the device.  The packed stream
+kernel's record carries its time, plain time and bound on the real syn45
+chunk of phase 4, the shape and row order the main path launches it at
+(with --kernels-only, phase 2's synthetic chunk shape); the other three
+carry those of their 65536-row synthetic chunk shape.  Nothing of JAX or
 of the JAX package is imported.
+
+--time-kernels runs no phase and prints no result lines: it builds the
+kernels, reads the instruction mix of the stream kernels' column loops
+from the machine code, and times every kernel over 20 launches after 3
+warm-up launches on the synthetic chunk shapes and on one real syn45
+chunk (narrowed and at full band, in the pipeline's row order and
+shuffled), into OUT.json.  kernel_ab.py runs that mode of two checkouts
+in turns on one card.
 """
 
 from __future__ import annotations
@@ -240,6 +253,22 @@ def _to_dev(text, reads, meta, dev):
     return words, rnib, torch.from_numpy(np.ascontiguousarray(meta)).to(dev)
 
 
+def time_launches(launch, reps=20, warm=0) -> float:
+    """ms per call of `launch` by CUDA events over `reps` calls, after
+    `warm` calls that are not timed."""
+    import torch
+
+    for _ in range(warm):
+        launch()
+    start, stop = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    for _ in range(reps):
+        launch()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def compare_kernel(args, reps, kernel, plain=None):
     """A kernel's wrapper and its plain version on the same CUDA inputs
     -> (rows that differ, max_abs_err, kernel ms or None, plain ms, the
@@ -263,15 +292,7 @@ def compare_kernel(args, reps, kernel, plain=None):
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
         if got.numel() else 0
     nbad = int((got != want).any(1).sum())
-    ms = None
-    if reps:
-        start, stop = torch.cuda.Event(True), torch.cuda.Event(True)
-        start.record()
-        for _ in range(reps):
-            kernel(*args)
-        stop.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(stop) / reps
+    ms = time_launches(lambda: kernel(*args), reps) if reps else None
     return nbad, err, ms, plain_ms, got.cpu().numpy()
 
 
@@ -356,11 +377,11 @@ def _nsteps(rows: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(rows[:, :2]).view(np.int16)[:, 3]
 
 
-def run_cases(dev, cases, kernel, plain=None, stream=True, **kw):
+def run_cases(dev, cases, kernel, plain=None, stream=True):
     """Each case through compare_kernel (the 65536-row ones timed), the
     kernel's wrapper given the case's band bound as the batch pipeline
-    gives it (no device read per launch) and `kw`; -> (worst
-    max_abs_err, (ms, plain_ms, bound) of the last timed case)."""
+    gives it (no device read per launch); -> (worst max_abs_err,
+    (ms, plain_ms, bound) of the last timed case)."""
     import torch
 
     from thermite_tpu_torch.ops.swg_stream import meta9, stream_group
@@ -370,14 +391,13 @@ def run_cases(dev, cases, kernel, plain=None, stream=True, **kw):
         words, rnib, mt = _to_dev(t, r, m, dev)
         bmax = int(meta9(torch.from_numpy(np.ascontiguousarray(m)))[:, 7].max())
         args = (words, words.shape[0], rnib, mt, xm, ym, *extra)
-        launch = functools.partial(kernel, band_max=bmax, **kw)
+        launch = functools.partial(kernel, band_max=bmax)
         nbad, err, ms, plain_ms, got = compare_kernel(
             args, reps=20 if len(m) == 65536 else 0, kernel=launch, plain=plain)
         if ms is not None:
             mhz, sms = sm_clock_mhz(lambda: launch(*args), ms)
             bound = kernel_bound(args[:6], m, got.shape[1], stream, mhz, sms)
-            per_warp = 32 // stream_group(bmax, xm, kw.get("lanes", 0))[0] \
-                if stream else None
+            per_warp = 32 // stream_group(bmax, xm)[0] if stream else None
             log_bound(name, ms, bound, per_warp)
             timing = (ms, plain_ms, bound)
         info = f"XMAX {xm} YMAX {ym}"
@@ -472,14 +492,12 @@ def general_band_cases():
 
 
 def phase_kernel_wide(dev, cases):
-    """The general-band stream kernel == plain, in its default group
-    shapes and with 32 and 16 lanes asked for; -> (worst max_abs_err,
-    (ms, plain_ms, bound) at the full-band chunk shape in the default
-    shape)."""
+    """The general-band stream kernel == plain; -> (worst max_abs_err,
+    (ms, plain_ms, bound) at the full-band chunk shape)."""
     from thermite_tpu_torch.ops.swg_stream import swg_stream_wide
 
-    # bands past 31 at XMAX 96: 16 lanes x 8 slots (or 32 x 4) cover the
-    # 97 slots; small windows bring the narrow groups to this kernel too
+    # bands past 31 at XMAX 96: 32 lanes x 4 slots cover the 97 slots;
+    # small windows bring the narrow groups to these bands too
     edge = boundary_cases([
         ("band 32", 60, 4099, [32]), ("band 47", 61, 4097, [47]),
         ("band 48", 62, 4099, [48]), ("band 63", 63, 4097, [63]),
@@ -493,13 +511,7 @@ def phase_kernel_wide(dev, cases):
                      (160,)))
     launches = swg_stream_wide.launches
     worst, timing = run_cases(dev, edge + cases, swg_stream_wide)
-    n = len(edge) + len(cases)
-    for lanes in (32, 16):
-        log(f"  the same cases with {lanes} lanes asked for:")
-        w, _ = run_cases(dev, edge + cases[-1:], swg_stream_wide, lanes=lanes)
-        worst = max(worst, w)
-        n += len(edge) + 1
-    check(swg_stream_wide.launches - launches >= n,
+    check(swg_stream_wide.launches - launches >= len(edge) + len(cases),
           "the general-band kernel did not launch on every case")
     return worst, timing
 
@@ -708,21 +720,46 @@ def timed_runs(run_batch, n_reads, first_s):
     return med
 
 
+def syn45_index(tmp):
+    """The 45 Mbp synthetic spliced chromosome, written under `tmp` and
+    indexed, and the options every phase aligns with."""
+    from thermite_tpu_torch.align.driver import AlignOpts
+    from thermite_tpu_torch.index.build import Index
+    from thermite_tpu_torch.testing.synth import write_synth_genome
+
+    fasta, gtf = write_synth_genome(tmp, SYN_BP, seed=1234, basename="syn45")
+    index = Index.create_from_files(fasta, gtf)
+    opts = AlignOpts(min_seed_len=20, min_aln_score_percent=0.0,
+                     min_aln_score=30, intron_mode=True)
+    return index, opts
+
+
+def chunk_launch(aligner, st):
+    """The stream-kernel launch of a built chunk as the pipeline submits
+    it (BatchAligner._dispatch_forward): the nontrivial problems in the
+    pipeline's row order (by ylen), narrowed to aligner.narrow_band while
+    that is on, padded to the batch's pinned row count, at its pinned
+    shapes; -> (args of swg_stream, band bound, problems, meta rows)."""
+    meta_dev = aligner._narrow_meta(st.meta_all) if aligner._narrowing() \
+        else st.meta_all
+    sub = meta_dev[aligner._device_rows(meta_dev)]
+    meta_np = aligner._pack_meta(aligner._pad_meta(sub, aligner._NFWD1))
+    words = aligner._ref_text()
+    args = (words, words.shape[0], st.reads_dev, aligner._upload(meta_np),
+            aligner._XMAX, aligner._YMAX, aligner._SMAX)
+    return args, int(sub[:, 7].max(initial=1)), len(sub), meta_np
+
+
 def phase_syn45(tmp):
     """Index syn45 in memory and run the main path once, counted."""
     import torch
 
-    from thermite_tpu_torch.align.driver import AlignOpts
-    from thermite_tpu_torch.index.build import Index
-    from thermite_tpu_torch.testing.synth import make_truth_reads, write_synth_genome
+    from thermite_tpu_torch.testing.synth import make_truth_reads
     from thermite_tpu_torch.align.batch import BatchAligner
 
     t0 = time.perf_counter()
-    fasta, gtf = write_synth_genome(tmp, SYN_BP, seed=1234, basename="syn45")
-    index = Index.create_from_files(fasta, gtf)
+    index, opts = syn45_index(tmp)
     t1 = time.perf_counter()
-    opts = AlignOpts(min_seed_len=20, min_aln_score_percent=0.0,
-                     min_aln_score=30, intron_mode=True)
     aligner = BatchAligner(index, opts, device="cuda")
     t2 = time.perf_counter()
     log(f"  syn45: {len(index.seq)} bp fwd+rc, {len(index.txome.txs)} "
@@ -866,7 +903,9 @@ def _profile_run(aligner, recs):
 
 def phase_cpp_referee(aligner, recs):
     """One syn45 chunk: kernel == plain on its real rows (timed), and
-    every certified row == the C++ full-band scalar SWG."""
+    every certified row == the C++ full-band scalar SWG.  -> (max_abs_err,
+    (ms, plain_ms, bound) of the main path's launch on this chunk, the
+    chunk)."""
     import torch
 
     from thermite_tpu_torch.ops.layout import expand_stream_hdr
@@ -897,16 +936,11 @@ def phase_cpp_referee(aligner, recs):
     check(differ == 0, f"{differ} certified rows differ from the C++ referee")
 
     # the same launch again, against the plain version, timed
-    sub = aligner._narrow_meta(st.meta_all)[st.fwd_idx]
-    meta = aligner._upload(aligner._pack_meta(
-        aligner._pad_meta(sub, aligner._NFWD1)))
-    words = aligner._ref_text()
-    args = (words, words.shape[0], st.reads_dev, meta, aligner._XMAX,
-            aligner._YMAX, aligner._SMAX)
-    bmax = int(sub[:, 7].max(initial=1))
+    args, bmax, nsub, meta_np = chunk_launch(aligner, st)
+    meta = args[3]
     kernel = functools.partial(swg_stream, band_max=bmax)
     nbad, err, ms, plain_ms, got = compare_kernel(args, reps=20, kernel=kernel)
-    log(f"  kernel vs plain on this chunk ({len(sub)} rows padded to "
+    log(f"  kernel vs plain on this chunk ({nsub} rows padded to "
         f"{aligner._NFWD1}, XMAX {aligner._XMAX} YMAX {aligner._YMAX} "
         f"SMAX {aligner._SMAX}): {nbad} differ, max_abs_err {err}, "
         f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
@@ -914,7 +948,6 @@ def phase_cpp_referee(aligner, recs):
     # its bound, and what the ragged warps cost: the pipeline's row order
     # (by ylen) against the same rows shuffled
     mhz, sms = sm_clock_mhz(lambda: kernel(*args), ms)
-    meta_np = meta.cpu().numpy()
     bound = kernel_bound(args[:6], meta_np, got.shape[1], True, mhz, sms)
     per_warp = 32 // stream_group(bmax, aligner._XMAX)[0]
     log_bound("the syn45 chunk in the pipeline's row order", ms, bound, per_warp)
@@ -926,7 +959,7 @@ def phase_cpp_referee(aligner, recs):
         f"of group-columns")
     aligner.native.free_chunk(st.native_ch)
     st.native_ch = None
-    return err, st
+    return err, (ms, plain_ms, bound), st
 
 
 def phase_traceback_path(aligner, st):
@@ -1255,6 +1288,105 @@ def phase_entry_points(opts, aligner, tmp, recs, pairs, header, single_sam):
         check(rc == 0 and same, f"{name} differs from its in-memory counterpart")
 
 
+def sass_column_loop(lib_path: str) -> dict:
+    """{kernel entry: instruction counts of its column loop} from
+    `cuobjdump -sass`: the loop (a backward branch and its target) that
+    holds the most SHFL/REDUX/VOTE instructions, counted by kind."""
+    import re
+    import shutil
+
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([exe, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=300).stdout
+    kinds = ("SHFL", "REDUX", "VOTE", "LDS", "STS")
+    mix = {}
+    for block in out.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        ins = [(int(a, 16), t) for a, t in re.findall(
+            r"/\*([0-9a-f]{4})\*/\s+([^;]+);", block)]
+        best = None
+        for addr, text in ins:
+            m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+            if not m or int(m.group(1), 16) >= addr:
+                continue
+            body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
+            warp = sum(any(k in t for k in kinds[:3]) for t in body)
+            if best is None or warp > best[0]:
+                best = (warp, body)
+        if best is not None:
+            mix[name] = {k: sum(k in t for t in best[1]) for k in kinds}
+            mix[name]["all"] = len(best[1])
+    return mix
+
+
+def time_kernels(out_path: str) -> None:
+    """The --time-kernels mode: every kernel's ms per launch (20 launches
+    after 3 warm-up launches) at the synthetic chunk shapes and on one real
+    syn45 chunk, and the instruction mix of the stream kernels' column
+    loops, printed and written to `out_path` as one JSON object."""
+    import torch
+
+    from thermite_tpu_torch.align.batch import BatchAligner
+    from thermite_tpu_torch.ops import _build
+    from thermite_tpu_torch.ops.layout import pack_meta_host
+    from thermite_tpu_torch.ops.swg_forward import swg_forward
+    from thermite_tpu_torch.ops.swg_stream import swg_stream
+    from thermite_tpu_torch.ops.swg_traceback import swg_traceback
+    from thermite_tpu_torch.testing.synth import make_truth_reads
+
+    dev = torch.device("cuda", 0)
+    res = {"sass": sass_column_loop(_build.build_kernels()["swg_stream"]),
+           "ms": {}}
+
+    def timed(name, launch):
+        res["ms"][name] = time_launches(launch, 20, warm=3)
+        log(f"  {name}: {res['ms'][name]:.4f} ms")
+
+    def by_ylen(m):  # the order BatchAligner._device_rows submits rows in
+        return m[np.argsort(m[:, 3], kind="stable")]
+
+    t, r, m, xm, ym = chunk_problems(8, 65536)
+    for order, rows in (("", m), (", rows by ylen", by_ylen(m))):
+        w, rn, mt = _to_dev(t, r, pack_meta_host(rows), dev)
+        timed(f"kernel 1, synthetic chunk shape (band<=15){order}",
+              lambda: swg_stream(w, w.shape[0], rn, mt, xm, ym, 208, band_max=15))
+    t, r, m, xm, ym = chunk_problems(9, 65536, wide=60, narrow=60)
+    for order, rows in ((", rows by ylen", by_ylen(m)), ("", m)):
+        w, rn, mt = _to_dev(t, r, pack_meta_host(rows), dev)
+        timed(f"kernel 2, synthetic chunk shape (band 60){order}",
+              lambda: swg_stream(w, w.shape[0], rn, mt, xm, ym, 256, band_max=60))
+    timed("kernel 3, synthetic chunk shape (band 60)",
+          lambda: swg_forward(w, w.shape[0], rn, mt, xm, ym, band_max=60))
+    timed("kernel 4, synthetic chunk shape (band 60, RMAX 24)",
+          lambda: swg_traceback(w, w.shape[0], rn, mt, xm, ym, 24, band_max=60))
+
+    os.makedirs(os.path.join(ROOT, "data", "out"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "data", "out")) as tmp:
+        index, opts = syn45_index(tmp)
+    aligner = BatchAligner(index, opts, device="cuda")
+    reads = [s for _, s in make_truth_reads(index, N_READS, seed=3)]
+    aligner._RPAD = 96  # the read block's row width, as the pipeline sets it
+    st = None
+    rng = np.random.default_rng(0)
+    # narrowed first: the pinned shapes only grow
+    for name, narrow_band in (("kernel 1, syn45 chunk narrowed to band 15", 15),
+                              ("kernel 2, syn45 chunk at band 60", 0)):
+        aligner.narrow_band = narrow_band
+        aligner._pin_shapes(reads)
+        if st is None:
+            st, _ = aligner._build_chunk(reads, 0)
+        args, bmax, nsub, _ = chunk_launch(aligner, st)
+        perm = torch.from_numpy(rng.permutation(args[3].shape[0])).to(dev)
+        for order, meta in (("pipeline order", args[3]),
+                            ("shuffled", args[3][perm].contiguous())):
+            timed(f"{name}, {nsub} rows of {meta.shape[0]}, {order}",
+                  lambda: swg_stream(*args[:3], meta, *args[4:], band_max=bmax))
+    aligner.native.free_chunk(st.native_ch)
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump(res, f, indent=1)
+
+
 def run(kernels_only: bool = False) -> dict:
     import torch
 
@@ -1347,7 +1479,7 @@ def run(kernels_only: bool = False) -> dict:
 
             t = time.perf_counter()
             log("phase 4: C++ full-band referee on one syn45 chunk")
-            err, st = phase_cpp_referee(aligner, recs)
+            err, time1, st = phase_cpp_referee(aligner, recs)
             log(f"phase 4 done in {time.perf_counter() - t:.1f} s")
 
             t = time.perf_counter()
@@ -1375,8 +1507,10 @@ def run(kernels_only: bool = False) -> dict:
 
     def record(name, source, replaces, worst, timing):
         """One kernel's line: its time, the plain version's and its bound
-        at the 65536-row chunk shape of its path (phases 2-2d), its
-        launches on its path's run.  No single PyTorch call computes a
+        (the packed stream kernel's on the real syn45 chunk of phase 4,
+        the others' at the 65536-row synthetic chunk shape of their path,
+        phases 2b-2d), its launches on its path's run.  No single PyTorch
+        call computes a
         banded affine-gap SWG with X-drop and traceback, so there is no
         library time."""
         k_ms, p_ms, bound = timing
@@ -1391,7 +1525,7 @@ def run(kernels_only: bool = False) -> dict:
         record("swg_stream", "swg_stream.cu",
                "thermite_tpu/ops/swg_pallas_packed.py:88",
                max(worst1, err), time1),
-        record("swg_stream_wide", "swg_stream_wide.cu",
+        record("swg_stream_wide", "swg_stream.cu",
                "thermite_tpu/ops/swg_pallas.py:409", worst2, time2),
         record("swg_forward", "swg_forward.cu",
                "thermite_tpu/ops/swg_pallas.py:185", worst3, time3),
@@ -1408,6 +1542,9 @@ def main() -> int:
               "runs only on a CUDA card", file=sys.stderr)
         return 2
     try:
+        if "--time-kernels" in sys.argv[1:]:
+            time_kernels(sys.argv[sys.argv.index("--time-kernels") + 1])
+            return 0
         result = run(kernels_only="--kernels-only" in sys.argv[1:])
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -60,7 +60,7 @@ def host_lib(tmp_path_factory):
     lib.thermite_swg_host_slots_for.restype = i32
     lib.thermite_swg_host_slots_for.argtypes = [i32, i32]
     lib.thermite_swg_host_stream_group.restype = i32
-    lib.thermite_swg_host_stream_group.argtypes = [i32, i32, i32]
+    lib.thermite_swg_host_stream_group.argtypes = [i32, i32]
     lib.thermite_swg_host_smem.restype = i32
     lib.thermite_swg_host_smem.argtypes = [i32, i32, i32, i32, i32, i32, p]
     return lib
@@ -100,7 +100,7 @@ def test_nib_at(host_lib):
 
 # every LANES x SLOTS class a kernel instantiates: the stream kernels'
 # groups, and 32 lanes x 1..32 slots of the forward and run-length kernels
-GROUPS = [(8, 4), (16, 4), (16, 8), (32, 1), (32, 2), (32, 4), (32, 8),
+GROUPS = [(8, 4), (16, 4), (32, 1), (32, 2), (32, 4), (32, 8),
           (32, 16), (32, 32)]
 
 
@@ -194,7 +194,6 @@ def test_walk_and_header_certificate_and_short_smax(host_lib):
 @pytest.mark.parametrize("group", [
     pytest.param((32, 4), id="4"), pytest.param((32, 8), id="8"),
     pytest.param((32, 16), id="16"), pytest.param((32, 32), id="32"),
-    pytest.param((16, 8), id="16x8"),
 ])
 def test_walk_and_header_general_band(host_lib, group):
     """dir_at / walk of the general kernel's group shapes: the planes of
@@ -268,18 +267,16 @@ def test_slot_classes_match_python(host_lib):
         for band in range(0, 1024, 7):
             assert host_lib.thermite_swg_host_slots_for(band, xmax) == \
                 ss.slots_per_lane(band, xmax), (band, xmax)
-            for lanes in (0, 16, 32):
-                g = ss.stream_group(band, xmax, lanes)
-                assert host_lib.thermite_swg_host_stream_group(
-                    band, xmax, lanes) == 100 * g[0] + g[1], (band, xmax)
-                assert g[0] * g[1] >= ss.slots_needed(band, xmax)
+            g = ss.stream_group(band, xmax)
+            assert host_lib.thermite_swg_host_stream_group(
+                band, xmax) == 100 * g[0] + g[1], (band, xmax)
+            assert g[0] * g[1] >= ss.slots_needed(band, xmax)
+            assert g in ss.STREAM_GROUPS
     # four problems a warp while 32 slots cover the launch, then two
     assert ss.stream_group(7, 96) == ss.stream_group(15, 96) == (8, 4)
     assert ss.stream_group(16, 96) == ss.stream_group(31, 96) == (16, 4)
     # 65..128 slots: one problem a warp timed faster than two (PERF.md)
     assert ss.stream_group(60, 96) == ss.stream_group(60, 512) == (32, 4)
-    assert ss.stream_group(60, 96, lanes=16) == (16, 8)
-    assert ss.stream_group(15, 96, lanes=32) == (32, 4)
     assert ss.stream_group(64, 512) == (32, 8)
     assert ss.stream_group(1023, 512) == (32, 32)
     assert ss.stream_group(40, 16) == (8, 4)
@@ -315,3 +312,28 @@ def test_shared_memory_fits_every_accepted_shape(host_lib):
     # the forward kernel holds the windows only
     assert host_lib.thermite_swg_host_smem(96, 160, 0, 0, 0, 4, _ptr(warps)) \
         == ss.problem_smem_words(96, 160, 0, 0, 0) == 66
+
+
+def test_one_launch_covers_every_group_shape():
+    """Both stream kernels are one source, one library and one launch:
+    its dispatch instantiates exactly the shapes of STREAM_GROUPS (the
+    table of csrc/swg_stream.cuh, in the same order), and the build table
+    names a launch signature for each library and only sources that
+    exist."""
+    import re
+
+    from thermite_tpu_torch.ops import _build
+
+    with open(os.path.join(CSRC, "swg_stream.cu")) as f:
+        src = f.read()
+    assert src.count('extern "C"') == 1
+    shapes = re.findall(r"launch_stream<(\d+), (\d+)>", src)
+    assert [(int(a), int(b)) for a, b in shapes] == list(ss.STREAM_GROUPS)
+    with open(os.path.join(CSRC, "swg_stream.cuh")) as f:
+        table = re.search(r"table\[\] = \{(.*?)\};", f.read(), re.S).group(1)
+    assert [(int(a), int(b)) for a, b in re.findall(r"\{(\d+),\s*(\d+)\}", table)] \
+        == list(ss.STREAM_GROUPS)
+    assert set(_build._LAUNCH) == set(_build.KERNELS)
+    for name in (*_build.KERNELS.values(), *_build.HEADERS):
+        assert os.path.exists(os.path.join(CSRC, name)), name
+    assert "thermite_swg_stream_launch" in _build._LAUNCH["swg_stream"]

@@ -1,5 +1,5 @@
-// The banded SWG DP core shared by the four kernels (swg_stream.cu,
-// swg_stream_wide.cu, swg_forward.cu, swg_traceback.cu), as sub-warp
+// The banded SWG DP core shared by the four kernels (swg_stream.cu for
+// both stream kernels, swg_forward.cu, swg_traceback.cu), as sub-warp
 // groups: a problem takes LANES lanes of a warp (8, 16 or 32) with SLOTS
 // band slots each in registers (band slot s on group lane s / SLOTS,
 // register s % SLOTS), and a warp carries 32 / LANES problems side by

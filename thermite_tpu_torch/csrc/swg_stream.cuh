@@ -1,5 +1,5 @@
-// Scalar pieces of the SWG kernels (swg_stream.cu, swg_stream_wide.cu,
-// swg_forward.cu, swg_traceback.cu) that run the same on the host and the
+// Scalar pieces of the SWG kernels (swg_stream.cu, swg_forward.cu,
+// swg_traceback.cu) that run the same on the host and the
 // device: meta unpacking, the nibble gather, the group shape (lanes and
 // slots) and shared-memory sizing of a launch, the direction-plane layout, the
 // per-problem traceback walks (2-bit code packing, run-length runs), and
@@ -109,22 +109,15 @@ __host__ __device__ inline int slots_for(int band_max, int xmax) {
 
 // The group shape of a stream-kernel launch: the first class of the table
 // that covers the launch, four problems a warp while 32 slots do, two
-// while 64 do, then one (at 65..128 slots 32 x 4 timed faster than 16 x 8
-// on an H100).  `lanes` (16 or 32) asks for that many lanes where a class
-// of the table has them (a timing knob; 0 = the table's order).  {0, 0}
-// when none suffices.
-__host__ __device__ inline Group stream_group(int band_max, int xmax,
-                                              int lanes = 0) {
+// while 64 do, then one (at 65..128 slots 32 x 4 timed faster than 16 x 8,
+// two a warp, on an H100).  {0, 0} when none suffices.
+__host__ __device__ inline Group stream_group(int band_max, int xmax) {
   constexpr Group table[] = {{8, 4},  {16, 4},  {32, 4},
-                             {16, 8}, {32, 8},  {32, 16}, {32, 32}};
+                             {32, 8}, {32, 16}, {32, 32}};
   const int need = slots_needed(band_max, xmax);
-  Group first{0, 0};
-  for (const Group& g : table) {
-    if (g.lanes * g.slots < need) continue;
-    if (first.lanes == 0) first = g;
-    if (lanes == 0 || g.lanes == lanes) return g;
-  }
-  return first;
+  for (const Group& g : table)
+    if (g.lanes * g.slots >= need) return g;
+  return Group{0, 0};
 }
 
 // Bytes in which a lane stores the 2-bit directions of its SLOTS slots of

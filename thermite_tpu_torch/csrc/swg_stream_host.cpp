@@ -39,8 +39,8 @@ int thermite_swg_host_slots_for(int band_max, int xmax) {
 }
 
 // -> lanes * 100 + slots of the stream kernels' group shape (0: none).
-int thermite_swg_host_stream_group(int band_max, int xmax, int lanes) {
-  const swg::Group g = swg::stream_group(band_max, xmax, lanes);
+int thermite_swg_host_stream_group(int band_max, int xmax) {
+  const swg::Group g = swg::stream_group(band_max, xmax);
   return g.lanes * 100 + g.slots;
 }
 
@@ -65,7 +65,6 @@ typename Fn::type for_group(int lanes, int slots) {
   switch (lanes * 100 + slots) {
     SWG_GROUP_CASE(8, 4)
     SWG_GROUP_CASE(16, 4)
-    SWG_GROUP_CASE(16, 8)
     SWG_GROUP_CASE(32, 1)
     SWG_GROUP_CASE(32, 2)
     SWG_GROUP_CASE(32, 4)

@@ -23,9 +23,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 # kernel library -> its source; every source includes both headers
+# (swg_stream.cu holds both stream kernels)
 KERNELS = {
     "swg_stream": "swg_stream.cu",
-    "swg_stream_wide": "swg_stream_wide.cu",
     "swg_forward": "swg_forward.cu",
     "swg_traceback": "swg_traceback.cu",
 }
@@ -41,9 +41,6 @@ _LAUNCH = {
     "swg_stream": {"thermite_swg_stream_launch":
                    [_p, _i64, _p, _i64, _p, _i32, _i64, _i32, _i32, _i32,
                     _i32, _p, _p, _p]},
-    "swg_stream_wide": {"thermite_swg_stream_wide_launch":
-                        [_p, _i64, _p, _i64, _p, _i32, _i64, _i32, _i32,
-                         _i32, _i32, _i32, _p, _p, _p]},
     "swg_forward": {"thermite_swg_forward_launch":
                     [_p, _i64, _p, _i64, _p, _i32, _i64, _i32, _i32, _i32,
                      _p, _p]},

@@ -21,13 +21,14 @@ the int32 header [score, max_i, max_j, nsteps], then the streams.
 certificate failed (the walk is valid at this band but a wider band
 might differ; the batch pipeline recomputes those rows at full band).
 
-For a CUDA tensor the wrapper launches a hand-written kernel: bands up
-to 31 ``csrc/swg_stream.cu`` (counted in ``swg_stream.launches``), wider
-bands ``csrc/swg_stream_wide.cu`` through ``swg_stream_wide`` (counted
-there).  Both run problems as sub-warp groups (``stream_group``): 8
-lanes x 4 band slots at band <= 15, four problems a warp.  For a CPU tensor it runs ``swg_stream_plain``, the plain
-PyTorch version of the same function, which is also the referee the
-card's kernels are held against.
+For a CUDA tensor the wrappers launch the hand-written kernel of
+``csrc/swg_stream.cu``, one launch for any band: ``swg_stream`` counts
+the launches at bands up to 31 in ``swg_stream.launches``, and routes
+wider bands through ``swg_stream_wide``, which counts them in its own.
+Problems run as sub-warp groups (``stream_group``): 8 lanes x 4 band
+slots at band <= 15, four problems a warp.  For a CPU tensor both run
+``swg_stream_plain``, the plain PyTorch version of the same function,
+which is also the referee the card's kernel is held against.
 """
 
 from __future__ import annotations
@@ -54,11 +55,11 @@ from .layout import (
     _WPAD,
 )
 
-PACKED_BAND_MAX = 31  # csrc/swg_stream.cu: groups of 8 or 16 lanes x 4 slots
+PACKED_BAND_MAX = 31  # the reference's packed stream kernel: bands up to 31
 
 # Group shapes (lanes a problem, band slots a lane) of the stream kernels,
 # in the order a launch tries them (``stream_group`` in csrc/swg_stream.cuh).
-STREAM_GROUPS = ((8, 4), (16, 4), (32, 4), (16, 8), (32, 8), (32, 16), (32, 32))
+STREAM_GROUPS = ((8, 4), (16, 4), (32, 4), (32, 8), (32, 16), (32, 32))
 
 
 def slots_needed(band_max: int, XMAX: int) -> int:
@@ -84,18 +85,17 @@ def slots_per_lane(band_max: int, XMAX: int) -> int:
     return s
 
 
-def stream_group(band_max: int, XMAX: int, lanes: int = 0):
+def stream_group(band_max: int, XMAX: int):
     """(lanes, slots) of a stream-kernel launch: a problem takes ``lanes``
     lanes of a warp with ``slots`` band slots each, and a warp carries
     32 // lanes problems.  The first shape of ``STREAM_GROUPS`` that covers
-    ``slots_needed``; ``lanes`` (16 or 32) asks for that many lanes where
-    a covering shape has them.  Same rule as ``stream_group`` in
+    ``slots_needed``.  Same rule as ``stream_group`` in
     csrc/swg_stream.cuh."""
     need = slots_needed(band_max, XMAX)
-    fits = [g for g in STREAM_GROUPS if g[0] * g[1] >= need]
-    if not fits:
-        raise ValueError(f"no group shape covers {need} slots (XMAX {XMAX})")
-    return next((g for g in fits if lanes in (0, g[0])), fits[0])
+    for g in STREAM_GROUPS:
+        if g[0] * g[1] >= need:
+            return g
+    raise ValueError(f"no group shape covers {need} slots (XMAX {XMAX})")
 
 
 def dir_bytes(slots: int) -> int:
@@ -409,16 +409,30 @@ def _launch_args(ref_nib, ref_lw, reads_nib, meta):
             ctypes.c_int64(meta.shape[0]))
 
 
-def _stream_outputs(meta, SMAX):
+def _current_stream(meta):
+    return ctypes.c_void_p(torch.cuda.current_stream(meta.device).cuda_stream)
+
+
+def _launch(counter, ref_nib, ref_lw, reads_nib, meta, XMAX, YMAX, SMAX,
+            band_max: int):
+    """Launch the stream kernel on the current stream and add one to
+    ``counter.launches``; -> (hdr, streams)."""
+    from ._build import kernel_lib
+
     N = meta.shape[0]
     hdr = torch.empty((N, 2), dtype=torch.int32, device=meta.device)
     streams = torch.empty((N, SMAX // 16), dtype=torch.int32,
                           device=meta.device)
+    if N:
+        err = kernel_lib("swg_stream").thermite_swg_stream_launch(
+            *_launch_args(ref_nib, ref_lw, reads_nib, meta),
+            XMAX, YMAX, SMAX, int(band_max),
+            ctypes.c_void_p(hdr.data_ptr()),
+            ctypes.c_void_p(streams.data_ptr()), _current_stream(meta),
+        )
+        raise_for_launch(err, counter.__name__)
+        counter.launches += 1
     return hdr, streams
-
-
-def _current_stream(meta):
-    return ctypes.c_void_p(torch.cuda.current_stream(meta.device).cuda_stream)
 
 
 def fuse_rows(hdr: torch.Tensor, streams: torch.Tensor) -> torch.Tensor:
@@ -436,30 +450,17 @@ def swg_stream(ref_nib, ref_lw, reads_nib, meta, XMAX: int, YMAX: int,
 
     Every problem needs xlen <= XMAX; y columns past YMAX are not
     computed.  ``band_max`` bounds every band of ``meta`` (read from it
-    when not given).  CUDA tensors launch a kernel on the current stream
-    (no synchronisation): bands up to 31 the packed kernel, wider ones
-    ``swg_stream_wide``; CPU tensors run ``swg_stream_plain``."""
+    when not given).  CUDA tensors launch the kernel on the current stream
+    (no synchronisation), counted here at bands up to 31 and in
+    ``swg_stream_wide`` above; CPU tensors run ``swg_stream_plain``."""
     if meta.device.type != "cuda":
         return swg_stream_plain(ref_nib, ref_lw, reads_nib, meta, XMAX,
                                 YMAX, SMAX, fused)
     _check(ref_nib, ref_lw, reads_nib, meta, XMAX, YMAX, SMAX)
     bmax = band_max_of(meta, band_max)
-    if bmax > PACKED_BAND_MAX:
-        hdr, streams = swg_stream_wide(ref_nib, ref_lw, reads_nib, meta,
-                                       XMAX, YMAX, SMAX, bmax)
-    else:
-        from ._build import kernel_lib
-
-        hdr, streams = _stream_outputs(meta, SMAX)
-        if meta.shape[0]:
-            err = kernel_lib("swg_stream").thermite_swg_stream_launch(
-                *_launch_args(ref_nib, ref_lw, reads_nib, meta),
-                XMAX, YMAX, SMAX, bmax,
-                ctypes.c_void_p(hdr.data_ptr()),
-                ctypes.c_void_p(streams.data_ptr()), _current_stream(meta),
-            )
-            raise_for_launch(err, "swg_stream")
-            swg_stream.launches += 1
+    wrapper = swg_stream_wide if bmax > PACKED_BAND_MAX else swg_stream
+    hdr, streams = _launch(wrapper, ref_nib, ref_lw, reads_nib, meta, XMAX,
+                           YMAX, SMAX, bmax)
     return fuse_rows(hdr, streams) if fused else (hdr, streams)
 
 
@@ -467,30 +468,18 @@ swg_stream.launches = 0
 
 
 def swg_stream_wide(ref_nib, ref_lw, reads_nib, meta, XMAX: int, YMAX: int,
-                    SMAX: int, band_max: int, lanes: int = 0):
-    """The general-band stream kernel (``csrc/swg_stream_wide.cu``),
-    split outputs as ``swg_stream``: for any band, in the group shape
-    ``stream_group(band_max, XMAX, lanes)``.  ``swg_stream`` routes bands
-    above 31 here.  ``lanes`` (16 or 32) picks among the shapes that
-    cover the launch (the rows do not depend on it; 0 is the default
-    order).  CPU tensors run ``swg_stream_plain``."""
+                    SMAX: int, band_max: int):
+    """The stream kernel counted as the general-band one (the reference's
+    ``make_stream_traceback_kernel``), split outputs as ``swg_stream``:
+    for any band, in the group shape ``stream_group(band_max, XMAX)``.
+    ``swg_stream`` counts bands above 31 here.  CPU tensors run
+    ``swg_stream_plain``."""
     if meta.device.type != "cuda":
         return swg_stream_plain(ref_nib, ref_lw, reads_nib, meta, XMAX,
                                 YMAX, SMAX)
     _check(ref_nib, ref_lw, reads_nib, meta, XMAX, YMAX, SMAX)
-    from ._build import kernel_lib
-
-    hdr, streams = _stream_outputs(meta, SMAX)
-    if meta.shape[0]:
-        err = kernel_lib("swg_stream_wide").thermite_swg_stream_wide_launch(
-            *_launch_args(ref_nib, ref_lw, reads_nib, meta),
-            XMAX, YMAX, SMAX, int(band_max), int(lanes),
-            ctypes.c_void_p(hdr.data_ptr()),
-            ctypes.c_void_p(streams.data_ptr()), _current_stream(meta),
-        )
-        raise_for_launch(err, "swg_stream_wide")
-        swg_stream_wide.launches += 1
-    return hdr, streams
+    return _launch(swg_stream_wide, ref_nib, ref_lw, reads_nib, meta, XMAX,
+                   YMAX, SMAX, band_max)
 
 
 swg_stream_wide.launches = 0

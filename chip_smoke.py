@@ -32,14 +32,21 @@ before the result lines are printed:
    full-band chunk shape (65536 rows, XMAX 96, YMAX 160, band 60, SMAX
    256), with both times and the bound.
 2c. the forward-scores kernel (swg_forward) == swg_forward_plain,
-   bit-exact, on the same kinds of shapes, with both times at the
-   full-band chunk shape.
+   bit-exact, on the same kinds of shapes and on shapes that cross its
+   per-warp group shapes (a warp's four rows run at 8, 16 or 32 lanes:
+   xlen of 1, of XMAX and random and bands mixed in one launch, as
+   generated and ordered by ylen, odd row counts, both meta forms), with
+   both times at the full-band chunk shape as generated and with its rows
+   ordered by ylen, each beside its bound, the share of warps at each
+   shape and the idle share of their groups.
 2d. the run-length traceback kernel (swg_traceback, swg_traceback_dense)
-   == its plain versions, bit-exact: gather fuzz shapes for every slot
-   class in both meta forms, dense shapes (bands above XMAX among them),
-   RMAX 1, 4, 24 and 64 with overflow rows and rows of exactly RMAX runs,
-   and the full-band chunk shape (65536 rows, XMAX 96, YMAX 160, band 60,
-   RMAX 24), with both times.
+   == its plain versions, bit-exact: gather fuzz shapes for every group
+   shape and slot class in both meta forms, dense shapes (bands above
+   XMAX among them), RMAX 1, 4, 24 and 64 with overflow rows and rows of
+   exactly RMAX runs, the per-warp group shapes of 2c in both input forms
+   (which must agree), and the full-band chunk shape (65536 rows, XMAX 96,
+   YMAX 160, band 60, RMAX 24) as generated and, in both input forms, with
+   its rows ordered by ylen, with both times.
 3. syn45 in memory: a 45 Mbp synthetic spliced chromosome, indexed, and
    49152 truth reads through BatchAligner(device="cuda")
    .align_batch_emit(fmt_bam=True); asserts the packed kernel ran once
@@ -70,7 +77,8 @@ before the result lines are printed:
 4b. kernel 4 on its own path, the differential check: the phase 4 chunk
    at its original band (60) through the run-length traceback kernel
    (RMAX 24); every row with nruns >= 0 decodes to kernel 2's decoded
-   stream row, 2000 sampled rows to the scalar oracle SwgExtend.
+   stream row, 2000 sampled rows to the scalar oracle SwgExtend; the
+   dense form on the same windows gives the same rows.
 6. the user entry points: the index saved and loaded, and the port's CLI
    aligning 2000 reads to SAM, equal to the in-memory emit; the CLI with
    --paired and with --engine cpp, two host shards joined by merge, and
@@ -84,16 +92,18 @@ and its bytes over the memory rate.  The last lines are one JSON object of
 kernel records and one JSON object naming the device.  The packed stream
 kernel's record carries its time, plain time and bound on the real syn45
 chunk of phase 4, the shape and row order the main path launches it at
-(with --kernels-only, phase 2's synthetic chunk shape); the other three
-carry those of their 65536-row synthetic chunk shape.  Nothing of JAX or
-of the JAX package is imported.
+(with --kernels-only, phase 2's synthetic chunk shape); the others carry
+those of their 65536-row synthetic chunk shape (the forward kernel and
+both input forms of the run-length traceback kernel with its rows ordered
+by ylen, as a pipeline submits them).  Nothing of JAX or of the JAX
+package is imported.
 
 --time-kernels runs no phase and prints no result lines: it builds the
-kernels, reads the instruction mix of the stream kernels' column loops
-from the machine code, and times every kernel over 20 launches after 3
-warm-up launches on the synthetic chunk shapes and on one real syn45
-chunk (narrowed and at full band, in the pipeline's row order and
-shuffled), into OUT.json.  kernel_ab.py runs that mode of two checkouts
+kernels, reads the instruction mix of every kernel's column loops from
+the machine code, and times every kernel over 20 launches after 3
+warm-up launches on the synthetic chunk shapes (as generated and with
+rows ordered by ylen) and on one real syn45 chunk (narrowed and at full
+band, in the pipeline's row order and shuffled), into OUT.json.  kernel_ab.py runs that mode of two checkouts
 in turns on one card.
 """
 
@@ -324,14 +334,15 @@ def sm_clock_mhz(launch, ms):
     return mhz, torch.cuda.get_device_properties(0).multi_processor_count
 
 
-def kernel_bound(work_args, meta_np, out_words_per_row, walk, mhz, sms):
+def kernel_bound(work_args, meta_np, out_words_per_row, walk, mhz, sms,
+                 dense=False):
     """The least time the card could take for this launch -> a dict with
     bound_ms, bound_by and the counts behind them.  Operations: the cells
     the plain version computes on these inputs (columns until each
     problem ends x computed slots) x OPS_PER_CELL, over sms x 64 INT32
     lanes x the SM clock read under load.  Bytes: meta, the window words
-    of text and reads, and the output rows, each once, over the memory
-    rate."""
+    of text and reads (`dense`: the window bytes of x and y and the params
+    rows), and the output rows, each once, over the memory rate."""
     import torch
 
     from thermite_tpu_torch.ops.swg_stream import dp_work_plain, meta9
@@ -339,15 +350,20 @@ def kernel_bound(work_args, meta_np, out_words_per_row, walk, mhz, sms):
     cols, cells = dp_work_plain(*work_args)
     cols, cells = cols.cpu().numpy(), cells.cpu().numpy()
     m9 = meta9(torch.from_numpy(np.ascontiguousarray(meta_np))).numpy()
-    window_words = int(((m9[:, 6] + 7) // 8 + (m9[:, 3] + 7) // 8).sum())
-    nbytes = 4 * (meta_np.size + window_words + out_words_per_row * len(meta_np))
+    if dense:
+        in_bytes = int((m9[:, 6] + m9[:, 3]).sum()) + 16 * len(m9)
+    else:
+        in_bytes = 4 * (meta_np.size + int(((m9[:, 6] + 7) // 8
+                                            + (m9[:, 3] + 7) // 8).sum()))
+    nbytes = in_bytes + 4 * out_words_per_row * len(meta_np)
     ops = int(cells.sum()) * OPS_PER_CELL[walk]
     ops_ms = 1e3 * ops / (sms * INT32_LANES_PER_SM * mhz * 1e6)
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "ops_ms": ops_ms, "bytes_ms": bytes_ms, "cells": int(cells.sum()),
-            "cols": cols, "sm_mhz": mhz}
+            "cols": cols, "cells_by_row": cells, "band": m9[:, 7],
+            "xlen": m9[:, 6], "sm_mhz": mhz}
 
 
 def ragged_idle(cols: np.ndarray, per_warp: int) -> float:
@@ -360,16 +376,51 @@ def ragged_idle(cols: np.ndarray, per_warp: int) -> float:
     return 1.0 - float(c.sum()) / total if total else 0.0
 
 
-def log_bound(name, ms, b, per_warp=None):
-    """One line: the time beside its bound, and the ragged-warp idle
-    share in the launch's row order."""
-    idle = "" if per_warp is None else (
-        f", {per_warp} problems a warp idle {100 * ragged_idle(b['cols'], per_warp):.1f}%"
-        f" of group-columns in this row order")
+def stream_note(b, per_warp: int, order=None) -> str:
+    """The ragged-warp idle share of a stream-kernel launch whose warps
+    carry `per_warp` problems, in the launch's row order (or `order`)."""
+    cols = b["cols"] if order is None else b["cols"][order]
+    return (f"{per_warp} problems a warp idle "
+            f"{100 * ragged_idle(cols, per_warp):.1f}% of group-columns")
+
+
+def rows_note(b, order=None) -> str:
+    """How a per-warp launch of kernel 3 or 4 fills its warps in the
+    launch's row order (or `order`): the share of warps at each group
+    shape, the group-columns that idle while a pass runs the columns of
+    its longest problem, and the share of a pass's 128 lane-slots that
+    hold a band cell, beside that share at one warp a problem."""
+    from thermite_tpu_torch.ops.swg_stream import ROWS_PER_WARP, warp_lanes
+
+    cols, cells, band, xlen = (
+        b[k] if order is None else b[k][order]
+        for k in ("cols", "cells_by_row", "band", "xlen"))
+    lanes = warp_lanes(band, xlen)
+    c4 = np.concatenate([cols, np.zeros(-len(cols) % ROWS_PER_WARP, cols.dtype)])
+    c4 = c4.reshape(-1, ROWS_PER_WARP)
+    share, group_cols, pass_cols = [], 0, 0
+    for n_lanes in (8, 16, 32):
+        g = 32 // n_lanes
+        longest = c4[lanes == n_lanes].reshape(-1, ROWS_PER_WARP // g, g).max(2)
+        share.append(100 * float(np.mean(lanes == n_lanes)))
+        pass_cols += int(longest.sum())
+        group_cols += g * int(longest.sum())
+    idle = 1.0 - float(cols.sum()) / group_cols if group_cols else 0.0
+    fill = float(cells.sum()) / (128 * pass_cols) if pass_cols else 0.0
+    alone = float(cells.sum()) / (128 * float(cols.sum())) if cols.sum() else 0.0
+    return ("warps at 8/16/32 lanes " + "/".join(f"{v:.1f}" for v in share)
+            + f"%, idle {100 * idle:.1f}% of group-columns, "
+            f"{100 * fill:.1f}% of lane-slots hold a cell "
+            f"({100 * alone:.1f}% at one warp a problem)")
+
+
+def log_bound(name, ms, b, note=""):
+    """One line: the time beside its bound, and `note` on how full the
+    warps run in the launch's row order."""
     log(f"  {name}: {ms:.4f} ms; bound {b['bound_ms']:.4f} ms by "
         f"{b['bound_by']} ({b['cells']} cells, operations {b['ops_ms']:.4f} ms "
         f"at {b['sm_mhz']:.0f} MHz, bytes {b['bytes_ms']:.4f} ms); share of "
-        f"bound {100 * b['bound_ms'] / ms:.1f}%{idle}")
+        f"bound {100 * b['bound_ms'] / ms:.1f}%" + (f"; {note}" if note else ""))
 
 
 def _nsteps(rows: np.ndarray) -> np.ndarray:
@@ -384,7 +435,7 @@ def run_cases(dev, cases, kernel, plain=None, stream=True):
     (ms, plain_ms, bound) of the last timed case)."""
     import torch
 
-    from thermite_tpu_torch.ops.swg_stream import meta9, stream_group
+    from thermite_tpu_torch.ops.swg_stream import meta9, rows_launch, stream_group
 
     worst, timing = 0, (None, None, None)
     for name, t, r, m, xm, ym, extra in cases:
@@ -397,8 +448,11 @@ def run_cases(dev, cases, kernel, plain=None, stream=True):
         if ms is not None:
             mhz, sms = sm_clock_mhz(lambda: launch(*args), ms)
             bound = kernel_bound(args[:6], m, got.shape[1], stream, mhz, sms)
-            per_warp = 32 // stream_group(bmax, xm)[0] if stream else None
-            log_bound(name, ms, bound, per_warp)
+            if stream:
+                note = stream_note(bound, 32 // stream_group(bmax, xm)[0])
+            else:
+                note = rows_note(bound) if rows_launch(bmax, xm) else ""
+            log_bound(name, ms, bound, note)
             timing = (ms, plain_ms, bound)
         info = f"XMAX {xm} YMAX {ym}"
         if stream:
@@ -516,16 +570,67 @@ def phase_kernel_wide(dev, cases):
     return worst, timing
 
 
+def by_ylen(m9: np.ndarray) -> np.ndarray:
+    """(N, 9) meta rows in the order BatchAligner._device_rows submits
+    them: by ylen, stable."""
+    return m9[np.argsort(m9[:, 3], kind="stable")]
+
+
+def row_shape_cases():
+    """Problems that cross the per-warp group shapes of kernels 3 and 4
+    (a warp's four rows run at 8, 16 or 32 lanes x 4 slots by the largest
+    min(2*band + 1, xlen + 1) among them), at XMAX 96, YMAX 160:
+    boundary_problems with xlen of 1, of XMAX and random and bands mixed
+    in one launch, as generated (most warps lifted to 32 lanes by one long
+    row) and ordered by ylen (short rows side by side in narrow groups,
+    xlen 31/32 and 63/64 in neighbouring warps), odd row counts and fewer
+    rows than one warp owns; the odd cases in the packed meta form.
+    -> [(name, text, reads, meta, XMAX, YMAX)]."""
+    from thermite_tpu_torch.ops.layout import pack_meta_host
+
+    specs = [  # name, seed, n, bands, ordered by ylen
+        ("band 60", 70, 4099, [60], False),
+        ("band 60, rows by ylen", 71, 4097, [60], True),
+        ("bands 7/15/16/31/60 mixed", 72, 4099, [7, 15, 16, 31, 60], False),
+        ("bands 7/15/16/31/60 mixed, rows by ylen", 73, 4101,
+         [7, 15, 16, 31, 60], True),
+        ("bands 0/1/15 (every warp 8 x 4)", 74, 4099, [0, 1, 15], False),
+        ("bands 16/31, rows by ylen (8 x 4 and 16 x 4)", 75, 4097, [16, 31], True),
+        ("band 60", 76, 1, [60], False), ("band 60", 77, 3, [60], False),
+        ("band 60", 78, 5, [60], True), ("bands 15/60 mixed", 79, 7, [15, 60], False),
+    ]
+    cases = []
+    for k, (name, seed, n, bands, ordered) in enumerate(specs):
+        t, r, m, xm, ym = boundary_problems(seed, n, bands, 96, 160)
+        m = by_ylen(m) if ordered else m
+        cases.append((f"group shapes, {name}, {n} rows", t, r,
+                      pack_meta_host(m) if k % 2 else m, xm, ym))
+    return cases
+
+
+def chunk_by_ylen():
+    """The full-band chunk shape with its rows ordered by ylen, as the
+    pipeline submits a chunk: (name, text, reads, packed meta, XMAX, YMAX)."""
+    from thermite_tpu_torch.ops.layout import pack_meta_host
+
+    t, r, m, xm, ym = chunk_problems(9, 65536, wide=60, narrow=60)
+    return ("full-band chunk shape, rows by ylen (65536 rows, band 60)", t, r,
+            pack_meta_host(by_ylen(m)), xm, ym)
+
+
 def phase_kernel_forward(dev, cases):
     """The forward-scores kernel == plain; -> (worst max_abs_err,
-    (ms, plain_ms, bound) at the full-band chunk shape)."""
+    (ms, plain_ms, bound) at the full-band chunk shape with rows ordered
+    by ylen, the order its pipeline launches it in)."""
     from thermite_tpu_torch.ops.swg_forward import swg_forward, swg_forward_plain
 
     extra = both_meta_forms("fuzz band<=15", *fuzz_problems(15, 4096, 15), ())
+    extra += [c + ((),) for c in row_shape_cases()]
+    cases = extra + [c[:6] + ((),) for c in cases] + [chunk_by_ylen() + ((),)]
     launches = swg_forward.launches
-    out = run_cases(dev, extra + [c[:6] + ((),) for c in cases],
-                    swg_forward, plain=swg_forward_plain, stream=False)
-    check(swg_forward.launches - launches >= len(cases) + len(extra),
+    out = run_cases(dev, cases, swg_forward, plain=swg_forward_plain,
+                    stream=False)
+    check(swg_forward.launches - launches >= len(cases),
           "the forward kernel did not launch on every case")
     return out
 
@@ -577,19 +682,24 @@ def dense_problems(seed, n, band_lo, band_hi, XMAX, YMAX, runs_near):
 
 def traceback_cases():
     """(name, form, inputs, XMAX, YMAX, RMAX) of phase 2d: gather fuzz
-    shapes for every slot class in both meta forms, dense shapes (bands
-    above XMAX among them), RMAX 1, 4, 24 and 64, and the full-band
-    chunk shape (65536 rows, XMAX 96, YMAX 160, band 60, RMAX 24)."""
+    shapes for every group shape and slot class in both meta forms, dense
+    shapes (bands above XMAX among them), RMAX 1, 4, 24 and 64, the shapes
+    that cross the per-warp groups in both input forms (RMAX 24, and 4 for
+    overflow rows), and the full-band chunk shape (65536 rows, XMAX 96,
+    YMAX 160, band 60, RMAX 24) as generated and, in both input forms,
+    with its rows ordered by ylen.  The form "both" runs the gather form,
+    then the dense form on the same windows, which must give the same
+    rows."""
     from thermite_tpu_torch.ops.layout import pack_meta_host
 
     gather = [  # name, seed, n, band_min, band_max, XMAX, YMAX, RMAX
-        ("fuzz band<=15 (1 slot)", 20, 4096, 0, 15, 64, 96, 24),
-        ("fuzz band 16-31 (2 slots)", 21, 4096, 16, 31, 64, 96, 4),
-        ("fuzz band 32-63 (4 slots)", 22, 4096, 32, 63, 64, 96, 64),
-        ("fuzz band 64-127 (8 slots)", 23, 2048, 64, 127, 128, 192, 1),
-        ("fuzz band 128-255 (16 slots, windows 512)", 24, 1024, 128, 255,
+        ("fuzz band<=15 (8 x 4)", 20, 4096, 0, 15, 64, 96, 24),
+        ("fuzz band 16-31 (up to 16 x 4)", 21, 4096, 16, 31, 64, 96, 4),
+        ("fuzz band 32-63 (up to 32 x 4)", 22, 4096, 32, 63, 64, 96, 64),
+        ("fuzz band 64-127 (32 x 8)", 23, 2048, 64, 127, 128, 192, 1),
+        ("fuzz band 128-255 (32 x 16, windows 512)", 24, 1024, 128, 255,
          512, 512, 24),
-        ("fuzz band 256-511 (32 slots, windows 512)", 25, 512, 256, 511,
+        ("fuzz band 256-511 (32 x 32, windows 512)", 25, 512, 256, 511,
          512, 512, 4),
         ("band>XMAX (XMAX 96)", 26, 4096, 97, 1023, 96, 160, 24),
     ]
@@ -608,20 +718,40 @@ def traceback_cases():
         cases.append((name, "dense",
                       dense_problems(seed, n, lo, hi, xm, ym, rmax),
                       xm, ym, rmax))
+    for k, (name, t, r, m, xm, ym) in enumerate(row_shape_cases()):
+        cases.append((name, "both", (t, r, m), xm, ym, 4 if k == 3 else 24))
     t, r, m, xm, ym = chunk_problems(9, 65536, wide=60, narrow=60)
     cases.append(("full-band chunk shape (65536 rows, band 60, RMAX 24)",
                   "gather", (t, r, pack_meta_host(m)), xm, ym, 24))
+    name, t, r, m, xm, ym = chunk_by_ylen()
+    cases.append((f"{name}, RMAX 24", "both", (t, r, m), xm, ym, 24))
     return cases
+
+
+def dense_from_gather(words, rnib, meta, XMAX, YMAX):
+    """The dense form's inputs of the gather form's problems, on the
+    meta's device: x (N, XMAX + 1) uint8 rows [0, codes...], y (N, YMAX)
+    uint8 codes, params (N, 4) int32 [xlen, ylen, band, x_drop]."""
+    import torch
+
+    from thermite_tpu_torch.ops.swg_stream import _windows, meta9
+
+    m9 = meta9(meta)
+    x, y = _windows(words, rnib, m9, XMAX, YMAX)
+    x = torch.cat([torch.zeros_like(x[:, :1]), x], 1).to(torch.uint8)
+    return (x.contiguous(), y.to(torch.uint8).contiguous(),
+            m9[:, [6, 3, 7, 8]].contiguous())
 
 
 def phase_kernel_traceback(dev):
     """Kernel 4 (swg_traceback, swg_traceback_dense) == its plain
     versions, bit-exact, on every case; for each RMAX both overflow rows
     (-1) and rows with exactly RMAX runs occur.  -> (worst max_abs_err,
-    (ms, plain_ms, bound) at the chunk shape)."""
+    (ms, plain_ms, bound) of the gather form and of the dense form at the
+    chunk shape with rows ordered by ylen)."""
     import torch
 
-    from thermite_tpu_torch.ops.swg_stream import meta9
+    from thermite_tpu_torch.ops.swg_stream import meta9, rows_launch
     from thermite_tpu_torch.ops.swg_traceback import (
         swg_traceback,
         swg_traceback_dense,
@@ -629,48 +759,67 @@ def phase_kernel_traceback(dev):
         swg_traceback_plain,
     )
 
-    worst, timing, seen = 0, (None, None, None), {}
+    worst, seen = 0, {}
+    timing = {"gather": (None, None, None), "dense": (None, None, None)}
     launches = swg_traceback.launches + swg_traceback_dense.launches
-    cases = traceback_cases()
-    for name, form, inputs, xm, ym, rmax in cases:
-        if form == "gather":
-            words, rnib, mt = _to_dev(*inputs, dev)
-            bmax = int(meta9(torch.from_numpy(np.ascontiguousarray(inputs[2])))
-                       [:, 7].max())
-            args = (words, words.shape[0], rnib, mt, xm, ym, rmax)
-            rows = mt.shape[0]
-            kernel, plain = swg_traceback, swg_traceback_plain
-        else:
-            args = tuple(torch.from_numpy(a).to(dev) for a in inputs) + (
-                xm, ym, rmax)
-            bmax = int(inputs[2][:, 2].max())
-            rows = len(inputs[2])
-            kernel, plain = swg_traceback_dense, swg_traceback_dense_plain
+    n_launched = 0
+
+    def one(name, form, args, bmax, work_args, meta_np):
+        """One form of one case -> the kernel's rows; the 65536-row cases
+        timed beside their bound."""
+        nonlocal worst, n_launched
+        xm, ym, rmax = args[-3:]
+        kernel, plain = ((swg_traceback, swg_traceback_plain) if form == "gather"
+                         else (swg_traceback_dense, swg_traceback_dense_plain))
         launch = functools.partial(kernel, band_max=bmax)
+        rows = len(meta_np)
         nbad, err, ms, plain_ms, got = compare_kernel(
             args, reps=20 if rows == 65536 else 0, kernel=launch, plain=plain)
-        if ms is not None:  # the chunk shape, gather form
+        n_launched += 1
+        if ms is not None:
             mhz, sms = sm_clock_mhz(lambda: launch(*args), ms)
-            bound = kernel_bound(args[:6], inputs[2], 4 + rmax, True, mhz, sms)
-            log_bound(name, ms, bound)
-            timing = (ms, plain_ms, bound)
+            bound = kernel_bound(work_args, meta_np, 4 + rmax, True, mhz, sms,
+                                 dense=form == "dense")
+            log_bound(f"{name}, {form} form", ms, bound,
+                      rows_note(bound) if rows_launch(bmax, xm) else "")
+            timing[form] = (ms, plain_ms, bound)
         nr = got[:, 3]
         over, exact = int((nr == -1).sum()), int((nr == rmax).sum())
         s = seen.setdefault(rmax, [0, 0])
         s[0] += over
         s[1] += exact
         t_ms = f", kernel {ms:.4f} ms, plain {plain_ms:.1f} ms" if ms else ""
-        log(f"  {name}: {len(got)} rows, XMAX {xm} YMAX {ym} RMAX {rmax}, "
-            f"nruns -1: {over}, == RMAX: {exact}, max nruns {nr.max()}; "
-            f"{nbad} differ, max_abs_err {err}{t_ms}")
-        check(nbad == 0, f"kernel 4 != plain on {name}")
+        log(f"  {name}, {form} form: {len(got)} rows, XMAX {xm} YMAX {ym} "
+            f"RMAX {rmax}, nruns -1: {over}, == RMAX: {exact}, max nruns "
+            f"{nr.max()}; {nbad} differ, max_abs_err {err}{t_ms}")
+        check(nbad == 0, f"kernel 4 != plain on {name}, {form} form")
         worst = max(worst, err)
+        return got
+
+    for name, form, inputs, xm, ym, rmax in traceback_cases():
+        if form == "dense":
+            args = tuple(torch.from_numpy(a).to(dev) for a in inputs)
+            one(name, form, args + (xm, ym, rmax), int(inputs[2][:, 2].max()),
+                None, inputs[2])
+            continue
+        words, rnib, mt = _to_dev(*inputs, dev)
+        meta_np = inputs[2]
+        bmax = int(meta9(torch.from_numpy(np.ascontiguousarray(meta_np)))
+                   [:, 7].max())
+        work_args = (words, words.shape[0], rnib, mt, xm, ym)
+        got = one(name, "gather", work_args + (rmax,), bmax, work_args, meta_np)
+        if form == "both":
+            dense = dense_from_gather(words, rnib, mt, xm, ym)
+            got_d = one(name, "dense", dense + (xm, ym, rmax), bmax, work_args,
+                        meta_np)
+            check((got_d == got).all(),
+                  f"kernel 4's two input forms differ on {name}")
     for rmax, (over, exact) in sorted(seen.items()):
         check(over > 0 and exact > 0,
               f"RMAX {rmax}: {over} overflow rows, {exact} rows of RMAX runs")
     check(swg_traceback.launches + swg_traceback_dense.launches - launches
-          >= len(cases), "kernel 4 did not launch on every case")
-    return worst, timing
+          >= n_launched, "kernel 4 did not launch on every case")
+    return worst, timing["gather"], timing["dense"]
 
 
 def _bam_primary_flags(raw: bytes) -> np.ndarray:
@@ -686,20 +835,27 @@ def _bam_primary_flags(raw: bytes) -> np.ndarray:
     return np.asarray(flags)
 
 
-def reset_launches():
+def _wrappers() -> dict:
+    """Every kernel wrapper of the port by the name its launches are
+    counted under."""
     from thermite_tpu_torch.ops.swg_forward import swg_forward
     from thermite_tpu_torch.ops.swg_stream import swg_stream, swg_stream_wide
+    from thermite_tpu_torch.ops.swg_traceback import (
+        swg_traceback,
+        swg_traceback_dense,
+    )
 
-    swg_stream.launches = swg_stream_wide.launches = swg_forward.launches = 0
+    return {f.__name__: f for f in (swg_stream, swg_stream_wide, swg_forward,
+                                    swg_traceback, swg_traceback_dense)}
+
+
+def reset_launches():
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def read_launches() -> dict:
-    from thermite_tpu_torch.ops.swg_forward import swg_forward
-    from thermite_tpu_torch.ops.swg_stream import swg_stream, swg_stream_wide
-
-    return {"swg_stream": swg_stream.launches,
-            "swg_stream_wide": swg_stream_wide.launches,
-            "swg_forward": swg_forward.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def timed_runs(run_batch, n_reads, first_s):
@@ -950,13 +1106,13 @@ def phase_cpp_referee(aligner, recs):
     mhz, sms = sm_clock_mhz(lambda: kernel(*args), ms)
     bound = kernel_bound(args[:6], meta_np, got.shape[1], True, mhz, sms)
     per_warp = 32 // stream_group(bmax, aligner._XMAX)[0]
-    log_bound("the syn45 chunk in the pipeline's row order", ms, bound, per_warp)
+    log_bound("the syn45 chunk in the pipeline's row order", ms, bound,
+              stream_note(bound, per_warp))
     perm = torch.from_numpy(np.random.default_rng(0).permutation(len(meta_np)))
     shuffled = (*args[:3], meta[perm.to(meta.device)].contiguous(), *args[4:])
     _, _, ms_sh, _, _ = compare_kernel(shuffled, reps=20, kernel=kernel)
     log(f"  the same rows shuffled: kernel {ms_sh:.4f} ms ({ms_sh / ms:.2f} x), "
-        f"idle {100 * ragged_idle(bound['cols'][perm.numpy()], per_warp):.1f}% "
-        f"of group-columns")
+        f"{stream_note(bound, per_warp, perm.numpy())}")
     aligner.native.free_chunk(st.native_ch)
     st.native_ch = None
     return err, (ms, plain_ms, bound), st
@@ -967,14 +1123,18 @@ def phase_traceback_path(aligner, st):
     chunk's nontrivial problems at their original band (60), through the
     run-length traceback kernel (RMAX 24) and the general-band stream
     kernel (fused rows).  Every row with nruns >= 0 decodes to the stream
-    walk's Alignment, and 2000 sampled rows to the scalar oracle's.
-    -> the kernel's launches in this run."""
+    walk's Alignment, and 2000 sampled rows to the scalar oracle's; the
+    dense form on the same windows gives the gather form's rows.
+    -> the launches of both forms in this run."""
     import torch
 
     from thermite_tpu_torch.ops.runs import decode_runs_one, decode_stream_batch
     from thermite_tpu_torch.ops.swg_ref import SwgExtend
     from thermite_tpu_torch.ops.swg_stream import swg_stream
-    from thermite_tpu_torch.ops.swg_traceback import swg_traceback
+    from thermite_tpu_torch.ops.swg_traceback import (
+        swg_traceback,
+        swg_traceback_dense,
+    )
 
     def up32(v):
         return 32 * ((int(v) + 31) // 32)
@@ -985,14 +1145,19 @@ def phase_traceback_path(aligner, st):
     bmax = int(sub[:, 7].max())
     meta = aligner._upload(aligner._pack_meta(sub))
     words = aligner._ref_text()
+    dense = dense_from_gather(words, st.reads_dev, meta, XMAX, YMAX)
     torch.cuda.synchronize()
-    swg_traceback.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     out, runs = swg_traceback(words, words.shape[0], st.reads_dev, meta, XMAX,
                               YMAX, 24, band_max=bmax)
     torch.cuda.synchronize()
     k_ms = (time.perf_counter() - t0) * 1e3
-    launches = swg_traceback.launches
+    out_d, runs_d = swg_traceback_dense(*dense, XMAX, YMAX, 24, band_max=bmax)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(bool((out_d == out).all()) and bool((runs_d == runs).all()),
+          "kernel 4's dense form differs from its gather form on the chunk")
     fused = swg_stream(words, words.shape[0], st.reads_dev, meta, XMAX, YMAX,
                        SMAX, band_max=bmax, fused=True).cpu().numpy()
     out, runs = out.cpu().numpy(), runs.cpu().numpy()
@@ -1017,17 +1182,20 @@ def phase_traceback_path(aligner, st):
         band, xd = int(sub[k, 7]), int(sub[k, 8])
         oracle_differ += alns[k] != SwgExtend(band).extend(x, y, band, xd)
     log(f"  chunk at full band: {len(sub)} problems, XMAX {XMAX} YMAX {YMAX} "
-        f"RMAX 24 (stream SMAX {SMAX}); kernel 4 launches {launches}, "
-        f"{k_ms:.3f} ms wall with sync; nruns = -1 rows: "
+        f"RMAX 24 (stream SMAX {SMAX}); launches {launches}, gather form "
+        f"{k_ms:.3f} ms wall with sync, dense form == gather form; "
+        f"nruns = -1 rows: "
         f"{len(sub) - len(ok)}; rows with nruns >= 0: {len(ok)}, decoded "
         f"!= kernel 2's decoded stream: {differ}; {len(sample)} sampled "
         f"rows != SwgExtend: {oracle_differ} "
         f"(oracle {time.perf_counter() - t1:.1f} s)")
-    check(launches >= 1, "kernel 4 did not launch on its path")
+    check(launches["swg_traceback"] >= 1
+          and launches["swg_traceback_dense"] >= 1,
+          "kernel 4 did not launch in both forms on its path")
     check(differ == 0, f"{differ} decoded runs differ from kernel 2's streams")
     check(oracle_differ == 0, f"{oracle_differ} sampled rows differ from "
           "the scalar oracle")
-    return launches
+    return launches["swg_traceback"], launches["swg_traceback_dense"]
 
 
 def paired_workload(index, n_pairs, seed=51):
@@ -1288,10 +1456,12 @@ def phase_entry_points(opts, aligner, tmp, recs, pairs, header, single_sam):
         check(rc == 0 and same, f"{name} differs from its in-memory counterpart")
 
 
-def sass_column_loop(lib_path: str) -> dict:
-    """{kernel entry: instruction counts of its column loop} from
-    `cuobjdump -sass`: the loop (a backward branch and its target) that
-    holds the most SHFL/REDUX/VOTE instructions, counted by kind."""
+def sass_column_loops(lib_path: str) -> dict:
+    """{kernel entry: [instruction counts of each column loop]} from
+    `cuobjdump -sass`: the innermost loops (a backward branch and its
+    target, with no other such loop inside) that hold SHFL, REDUX or VOTE
+    instructions, counted by kind, in address order.  A stream kernel has
+    one; a per-warp kernel one for each of its three group shapes."""
     import re
     import shutil
 
@@ -1303,27 +1473,30 @@ def sass_column_loop(lib_path: str) -> dict:
     for block in out.split("Function : ")[1:]:
         name = block.split("\n", 1)[0].strip()
         ins = [(int(a, 16), t) for a, t in re.findall(
-            r"/\*([0-9a-f]{4})\*/\s+([^;]+);", block)]
-        best = None
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]+);", block)]
+        loops = []
         for addr, text in ins:
             m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
             if not m or int(m.group(1), 16) >= addr:
                 continue
             body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
-            warp = sum(any(k in t for k in kinds[:3]) for t in body)
-            if best is None or warp > best[0]:
-                best = (warp, body)
-        if best is not None:
-            mix[name] = {k: sum(k in t for t in best[1]) for k in kinds}
-            mix[name]["all"] = len(best[1])
+            if any(k in t for t in body for k in kinds[:3]):
+                loops.append((int(m.group(1), 16), addr, body))
+        inner = [lp for lp in loops
+                 if not any(o is not lp and lp[0] <= o[0] and o[1] <= lp[1]
+                            for o in loops)]
+        if inner:
+            mix[name] = [{**{k: sum(k in t for t in body) for k in kinds},
+                          "all": len(body)} for _, _, body in sorted(inner)]
     return mix
 
 
 def time_kernels(out_path: str) -> None:
     """The --time-kernels mode: every kernel's ms per launch (20 launches
-    after 3 warm-up launches) at the synthetic chunk shapes and on one real
-    syn45 chunk, and the instruction mix of the stream kernels' column
-    loops, printed and written to `out_path` as one JSON object."""
+    after 3 warm-up launches) at the synthetic chunk shapes, as generated
+    and with rows ordered by ylen, and on one real syn45 chunk, and the
+    instruction mix of every kernel's column loops, printed and written to
+    `out_path` as one JSON object."""
     import torch
 
     from thermite_tpu_torch.align.batch import BatchAligner
@@ -1331,34 +1504,42 @@ def time_kernels(out_path: str) -> None:
     from thermite_tpu_torch.ops.layout import pack_meta_host
     from thermite_tpu_torch.ops.swg_forward import swg_forward
     from thermite_tpu_torch.ops.swg_stream import swg_stream
-    from thermite_tpu_torch.ops.swg_traceback import swg_traceback
+    from thermite_tpu_torch.ops.swg_traceback import (
+        swg_traceback,
+        swg_traceback_dense,
+    )
     from thermite_tpu_torch.testing.synth import make_truth_reads
 
     dev = torch.device("cuda", 0)
-    res = {"sass": sass_column_loop(_build.build_kernels()["swg_stream"]),
-           "ms": {}}
+    res = {"sass": {}, "ms": {}}
+    for path in _build.build_kernels().values():
+        res["sass"].update(sass_column_loops(path))
 
     def timed(name, launch):
         res["ms"][name] = time_launches(launch, 20, warm=3)
         log(f"  {name}: {res['ms'][name]:.4f} ms")
-
-    def by_ylen(m):  # the order BatchAligner._device_rows submits rows in
-        return m[np.argsort(m[:, 3], kind="stable")]
 
     t, r, m, xm, ym = chunk_problems(8, 65536)
     for order, rows in (("", m), (", rows by ylen", by_ylen(m))):
         w, rn, mt = _to_dev(t, r, pack_meta_host(rows), dev)
         timed(f"kernel 1, synthetic chunk shape (band<=15){order}",
               lambda: swg_stream(w, w.shape[0], rn, mt, xm, ym, 208, band_max=15))
+        timed(f"kernel 3, synthetic chunk shape (band<=15){order}",
+              lambda: swg_forward(w, w.shape[0], rn, mt, xm, ym, band_max=15))
+        timed(f"kernel 4, synthetic chunk shape (band<=15, RMAX 24){order}",
+              lambda: swg_traceback(w, w.shape[0], rn, mt, xm, ym, 24, band_max=15))
     t, r, m, xm, ym = chunk_problems(9, 65536, wide=60, narrow=60)
     for order, rows in ((", rows by ylen", by_ylen(m)), ("", m)):
         w, rn, mt = _to_dev(t, r, pack_meta_host(rows), dev)
         timed(f"kernel 2, synthetic chunk shape (band 60){order}",
               lambda: swg_stream(w, w.shape[0], rn, mt, xm, ym, 256, band_max=60))
-    timed("kernel 3, synthetic chunk shape (band 60)",
-          lambda: swg_forward(w, w.shape[0], rn, mt, xm, ym, band_max=60))
-    timed("kernel 4, synthetic chunk shape (band 60, RMAX 24)",
-          lambda: swg_traceback(w, w.shape[0], rn, mt, xm, ym, 24, band_max=60))
+        timed(f"kernel 3, synthetic chunk shape (band 60){order}",
+              lambda: swg_forward(w, w.shape[0], rn, mt, xm, ym, band_max=60))
+        timed(f"kernel 4, synthetic chunk shape (band 60, RMAX 24){order}",
+              lambda: swg_traceback(w, w.shape[0], rn, mt, xm, ym, 24, band_max=60))
+        dense = dense_from_gather(w, rn, mt, xm, ym)
+        timed(f"kernel 4 dense form, synthetic chunk shape (band 60, RMAX 24){order}",
+              lambda: swg_traceback_dense(*dense, xm, ym, 24, band_max=60))
 
     os.makedirs(os.path.join(ROOT, "data", "out"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "data", "out")) as tmp:
@@ -1369,18 +1550,25 @@ def time_kernels(out_path: str) -> None:
     st = None
     rng = np.random.default_rng(0)
     # narrowed first: the pinned shapes only grow
-    for name, narrow_band in (("kernel 1, syn45 chunk narrowed to band 15", 15),
-                              ("kernel 2, syn45 chunk at band 60", 0)):
+    for name, narrow_band in (("syn45 chunk narrowed to band 15", 15),
+                              ("syn45 chunk at band 60", 0)):
         aligner.narrow_band = narrow_band
         aligner._pin_shapes(reads)
         if st is None:
             st, _ = aligner._build_chunk(reads, 0)
         args, bmax, nsub, _ = chunk_launch(aligner, st)
         perm = torch.from_numpy(rng.permutation(args[3].shape[0])).to(dev)
+        stream_k = 1 if narrow_band else 2
         for order, meta in (("pipeline order", args[3]),
                             ("shuffled", args[3][perm].contiguous())):
-            timed(f"{name}, {nsub} rows of {meta.shape[0]}, {order}",
+            rows = f"{nsub} rows of {meta.shape[0]}, {order}"
+            timed(f"kernel {stream_k}, {name}, {rows}",
                   lambda: swg_stream(*args[:3], meta, *args[4:], band_max=bmax))
+            timed(f"kernel 3, {name}, {rows}",
+                  lambda: swg_forward(*args[:3], meta, *args[4:6], band_max=bmax))
+            timed(f"kernel 4, {name}, RMAX 24, {rows}",
+                  lambda: swg_traceback(*args[:3], meta, *args[4:6], 24,
+                                        band_max=bmax))
     aligner.native.free_chunk(st.native_ch)
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "w") as f:
@@ -1438,11 +1626,10 @@ def run(kernels_only: bool = False) -> dict:
     t = time.perf_counter()
     log("phase 2d: run-length traceback kernel vs its plain versions "
         "(bit-exact)")
-    worst4, time4 = phase_kernel_traceback(dev)
+    worst4, time4, time4d = phase_kernel_traceback(dev)
     log(f"phase 2d done in {time.perf_counter() - t:.1f} s")
 
-    launches = {"swg_stream": None, "swg_stream_wide": None,
-                "swg_forward": None, "swg_traceback": None}
+    launches = dict.fromkeys(_wrappers())
     err = 0
     if not kernels_only:
         os.makedirs(os.path.join(ROOT, "data", "out"), exist_ok=True)
@@ -1485,7 +1672,8 @@ def run(kernels_only: bool = False) -> dict:
             t = time.perf_counter()
             log("phase 4b: kernel 4 on its path, the phase 4 chunk at full "
                 "band against kernel 2 and the scalar oracle")
-            launches["swg_traceback"] = phase_traceback_path(aligner, st)
+            launches["swg_traceback"], launches["swg_traceback_dense"] = \
+                phase_traceback_path(aligner, st)
             del st
             log(f"phase 4b done in {time.perf_counter() - t:.1f} s")
 
@@ -1509,10 +1697,10 @@ def run(kernels_only: bool = False) -> dict:
         """One kernel's line: its time, the plain version's and its bound
         (the packed stream kernel's on the real syn45 chunk of phase 4,
         the others' at the 65536-row synthetic chunk shape of their path,
-        phases 2b-2d), its launches on its path's run.  No single PyTorch
-        call computes a
-        banded affine-gap SWG with X-drop and traceback, so there is no
-        library time."""
+        phases 2b-2d; kernels 3 and 4 with its rows ordered by ylen, as a
+        pipeline submits them), its launches on its path's run.  No single
+        PyTorch call computes a banded affine-gap SWG with X-drop and
+        traceback, so there is no library time."""
         k_ms, p_ms, bound = timing
         return {"name": name, "route": "cuda",
                 "source": f"thermite_tpu_torch/csrc/{source}",
@@ -1531,6 +1719,8 @@ def run(kernels_only: bool = False) -> dict:
                "thermite_tpu/ops/swg_pallas.py:185", worst3, time3),
         record("swg_traceback", "swg_traceback.cu",
                "thermite_tpu/ops/swg_pallas.py:244", worst4, time4),
+        record("swg_traceback_dense", "swg_traceback.cu",
+               "thermite_tpu/ops/swg_pallas.py:244", worst4, time4d),
     ]}
 
 

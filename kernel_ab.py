@@ -10,8 +10,8 @@ only comparable on one card within one call, so the script runs
 the order parent, change, change, parent: each checkout builds and times
 its own kernels on the same seeded inputs (see ``time_kernels`` in
 ``chip_smoke.py``).  It prints the card's name and power limit, every
-measurement with each turn's time, and the instruction mix of each
-checkout's stream-kernel column loops; ``--json`` writes them to a file.
+measurement with each turn's time, and the instruction mix of the column
+loops of each checkout's kernels; ``--json`` writes them to a file.
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ def main() -> int:
     for name in dict.fromkeys(n for t in turns for n in t["ms"]):
         print(f"  {name}: " + ", ".join(
             f"{t['ms'][name]:.4f}" if name in t["ms"] else "-" for t in turns))
-    print("instructions of each stream kernel's column loop (cuobjdump -sass):")
+    print("instructions of each kernel's column loops (cuobjdump -sass):")
     for t in turns[:2]:
         for entry, counts in t["sass"].items():
             print(f"  {t['checkout']} {entry}: {counts}")

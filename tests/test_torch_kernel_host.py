@@ -61,6 +61,11 @@ def host_lib(tmp_path_factory):
     lib.thermite_swg_host_slots_for.argtypes = [i32, i32]
     lib.thermite_swg_host_stream_group.restype = i32
     lib.thermite_swg_host_stream_group.argtypes = [i32, i32]
+    lib.thermite_swg_host_rows_launch.restype = i32
+    lib.thermite_swg_host_rows_launch.argtypes = [i32, i32]
+    lib.thermite_swg_host_warp_lanes.argtypes = [p, i32, i32, i64, p]
+    lib.thermite_swg_host_rows_warp_words.restype = i32
+    lib.thermite_swg_host_rows_warp_words.argtypes = [i32, i32, i32]
     lib.thermite_swg_host_smem.restype = i32
     lib.thermite_swg_host_smem.argtypes = [i32, i32, i32, i32, i32, i32, p]
     return lib
@@ -98,10 +103,10 @@ def test_nib_at(host_lib):
     assert (out == want.numpy()).all()
 
 
-# every LANES x SLOTS class a kernel instantiates: the stream kernels'
-# groups, and 32 lanes x 1..32 slots of the forward and run-length kernels
-GROUPS = [(8, 4), (16, 4), (32, 1), (32, 2), (32, 4), (32, 8),
-          (32, 16), (32, 32)]
+# every LANES x SLOTS class a kernel instantiates: the three 4-slot groups
+# (a stream launch's shape, or a warp's of the forward and run-length
+# kernels) and 32 lanes x 8..32 slots above 128 slots a launch
+GROUPS = [(8, 4), (16, 4), (32, 4), (32, 8), (32, 16), (32, 32)]
 
 
 def _planes(dirs: np.ndarray, lanes: int, slots: int) -> np.ndarray:
@@ -214,8 +219,17 @@ def test_walk_and_header_packed_groups(host_lib, group, band_hi):
     assert (ns > 0).any()
 
 
+def _kernel4_group(slots: int):
+    """The group shape kernel 4 runs a problem of slot class ``slots``
+    (32 * slots band slots) in: the narrowest 4-slot group up to 128
+    slots, 32 lanes above."""
+    return (ss.warp_lanes([16 * slots], [32 * slots - 1])[0], 4) \
+        if slots <= ss.ROWS_SLOTS else (32, slots)
+
+
 def _runs_case(host_lib, words, rnib, meta, XMAX, YMAX, slots, steps, rmax):
-    """walk_runs<32, SLOTS> on the planes of a plain forward pass ==
+    """walk_runs<LANES, SLOTS> on the planes of a plain forward pass over
+    32 * slots band slots, in the group shape kernel 4 takes for them, ==
     _walk_runs_plain on its directions: nruns and every run slot."""
     m9 = torch.from_numpy(np.ascontiguousarray(meta))
     x, y = ss._windows(torch.from_numpy(words), torch.from_numpy(rnib), m9,
@@ -224,13 +238,14 @@ def _runs_case(host_lib, words, rnib, meta, XMAX, YMAX, slots, steps, rmax):
     L = 32 * slots
     _, mi, mj, _, dirs = ss._forward_plain(x, y, xlen, ylen, band, xdrop, L)
     want_n, want_runs = _walk_runs_plain(dirs, mi, mj, band, steps, rmax)
-    planes = _planes(dirs.numpy(), 32, slots)
+    lanes, gslots = _kernel4_group(slots)
+    planes = _planes(dirs.numpy(), lanes, gslots)
     n = len(meta)
     runs = np.zeros((n, rmax), np.int32)
     nruns = np.zeros(n, np.int32)
     arrs = [a.numpy().astype(np.int32) for a in (mi, mj, band)]
     rc = host_lib.thermite_swg_host_walk_runs(
-        _ptr(planes), 32, slots, YMAX, *[_ptr(a) for a in arrs], n, steps,
+        _ptr(planes), lanes, gslots, YMAX, *[_ptr(a) for a in arrs], n, steps,
         rmax,
         _ptr(runs), _ptr(nruns),
     )
@@ -247,7 +262,11 @@ def test_walk_runs(host_lib, slots, steps, rmax):
     """Run boundaries (M and S are separate ops), the step bound
     (XMAX + YMAX + 2, or 20 to cut walks short) and RMAX overflow (-1,
     the first RMAX runs still written; exactly RMAX runs is valid), for
-    every slot class of kernel 4."""
+    every group shape of kernel 4: 8, 16 and 32 lanes x 4 slots for slot
+    classes 1, 2 and 4, reading the planes that layout gives, and 32 lanes
+    above."""
+    assert [_kernel4_group(k) for k in (1, 2, 4, 8)] == \
+        [(8, 4), (16, 4), (32, 4), (32, 8)]
     if slots <= 2:
         words, rnib, meta, XMAX, YMAX = _fuzz_case(slots, 32 * (slots + 1), 64)
     else:
@@ -304,14 +323,130 @@ def test_shared_memory_fits_every_accepted_shape(host_lib):
     # the direction planes alone at 32 x 32 slots, YMAX 512: one warp per block
     host_lib.thermite_swg_host_smem(_WPAD, _WPAD, pw, 32, 32, 4, _ptr(warps))
     assert warps[0] == 1
-    # kernel 4 sizes a warp the same way, with its RMAX runs for pw
-    for slots, ymax, rmax in ((1, 128, 24), (4, 160, 24), (32, 512, 64)):
-        words = host_lib.thermite_swg_host_smem(96, ymax, rmax, 32, slots, 4,
-                                                _ptr(warps))
+    # kernel 4 sizes a problem the same way, with its RMAX runs for pw: a
+    # warp of the per-warp family holds four problems at 8 lanes, which
+    # covers its two at 16 lanes and its one at 32; above, one at 32 lanes
+    for slots, ymax, rmax in ((1, 128, 24), (4, 160, 24), (4, 512, 64)):
+        words = host_lib.thermite_swg_host_rows_warp_words(96, ymax, rmax)
         assert 4 * words == traceback_smem_bytes(96, ymax, rmax, slots)
+        assert words == 4 * ss.problem_smem_words(96, ymax, rmax, 8, 4)
+        for lanes in (16, 32):
+            assert (32 // lanes) * ss.problem_smem_words(
+                96, ymax, rmax, lanes, 4) <= words
+    words = host_lib.thermite_swg_host_smem(96, 512, 64, 32, 32, 4, _ptr(warps))
+    assert 4 * words == traceback_smem_bytes(96, 512, 64, 32)
+    # the real chunk shape: four warps (16 problems) a block in about 26 KB
+    words = host_lib.thermite_swg_host_rows_warp_words(96, 160, 24)
+    assert 4 * 4 * words == 26368
     # the forward kernel holds the windows only
     assert host_lib.thermite_swg_host_smem(96, 160, 0, 0, 0, 4, _ptr(warps)) \
         == ss.problem_smem_words(96, 160, 0, 0, 0) == 66
+
+
+def _warp_lanes_host(host_lib, rows: np.ndarray, dense: bool) -> np.ndarray:
+    rows = np.ascontiguousarray(rows, np.int32)
+    out = np.zeros(-(-len(rows) // ss.ROWS_PER_WARP), np.int32)
+    host_lib.thermite_swg_host_warp_lanes(_ptr(rows), rows.shape[1], int(dense),
+                                          len(rows), _ptr(out))
+    return out
+
+
+def _rows_meta(xlen, band) -> np.ndarray:
+    """(N, 9) meta rows with these xlens and bands, ylen = xlen + band + 1
+    as the batch pipeline builds a flank."""
+    from thermite_tpu_torch.ops.layout import meta_row
+
+    return np.asarray([meta_row(1000 + 7 * k, 1, x + b + 1, 96 * k, 1, x, b, b)
+                       for k, (x, b) in enumerate(zip(xlen, band))], np.int32)
+
+
+@pytest.mark.parametrize("form", ["9-col", "4-col", "dense"])
+@pytest.mark.parametrize("name,xlen,band,want", [
+    # a warp of all-short rows takes 8 x 4; one long row lifts its warp only
+    ("short", [5, 9, 20, 31] * 2, [60] * 8, [8, 8]),
+    ("one long row", [5, 9, 20, 31, 5, 90, 20, 31], [60] * 8, [8, 32]),
+    ("one middle row", [5, 9, 20, 31, 5, 9, 33, 31], [60] * 8, [8, 16]),
+    # the narrow side decides: min(2*band + 1, xlen + 1)
+    ("band decides", [90] * 8, [15, 15, 15, 15, 15, 16, 31, 15], [8, 16]),
+    ("band 0", [90, 1, 96, 50], [0] * 4, [8]),
+    # xlen + 1 at 32/33, 64/65, 128/129 (the last is not of this family:
+    # a row past 128 slots still takes the widest shape)
+    ("xlen 31", [31] * 4, [60] * 4, [8]), ("xlen 32", [32, 1, 1, 1], [60] * 4, [16]),
+    ("xlen 63", [63] * 4, [60] * 4, [16]), ("xlen 64", [1, 1, 1, 64], [60] * 4, [32]),
+    ("xlen 127", [127] * 4, [100] * 4, [32]), ("xlen 128", [128] * 4, [100] * 4, [32]),
+    # 2*band + 1 at 31/33, 63/65, 127/129
+    ("band 15", [96] * 4, [15] * 4, [8]), ("band 16", [96] * 4, [15, 15, 16, 15], [16]),
+    ("band 31", [96] * 4, [31] * 4, [16]), ("band 32", [96] * 4, [32, 0, 0, 0], [32]),
+    ("band 63", [200] * 4, [63] * 4, [32]), ("band 64", [200] * 4, [64] * 4, [32]),
+    # a last partial warp looks at the rows it has
+    ("partial warp", [90, 90, 90, 90, 5], [60] * 5, [32, 8]),
+    ("partial warp, long", [5, 5, 5, 5, 5, 40], [60] * 6, [8, 16]),
+    ("one row", [31], [60], [8]),
+])
+def test_warp_lanes(host_lib, form, name, xlen, band, want):
+    """The per-warp shape choice of kernels 3 and 4 (warp_lanes in
+    swg_stream.cuh) from each meta form and from the dense form's params,
+    and its Python mirror."""
+    meta = _rows_meta(xlen, band)
+    if form == "dense":
+        rows = meta[:, [6, 3, 7, 8]]
+    else:
+        rows = meta if form == "9-col" else pack_meta_host(meta)
+    got = _warp_lanes_host(host_lib, rows, form == "dense")
+    assert got.tolist() == want
+    assert ss.warp_lanes(band, xlen).tolist() == want
+
+
+def test_warp_lanes_matches_python_on_a_chunk(host_lib):
+    """Random rows in launch order and ordered by ylen: the same shape per
+    warp from the C++ rule and its Python mirror; ordered rows put short
+    problems in narrow groups."""
+    rng = np.random.default_rng(5)
+    n = 4099
+    xlen = rng.integers(1, 91, n)
+    band = rng.choice([7, 15, 31, 60], n)
+    meta = _rows_meta(xlen, band)
+    for rows in (meta, meta[np.argsort(meta[:, 3], kind="stable")]):
+        got = _warp_lanes_host(host_lib, pack_meta_host(rows), False)
+        assert (got == ss.warp_lanes(rows[:, 7], rows[:, 6])).all()
+        assert set(got.tolist()) == {8, 16, 32}
+    m60 = _rows_meta(xlen, [60] * n)
+    mixed = _warp_lanes_host(host_lib, m60, False)
+    ordered = _warp_lanes_host(
+        host_lib, m60[np.argsort(m60[:, 3], kind="stable")], False)
+    assert (mixed == 32).mean() > 0.6
+    assert (ordered == 8).mean() > 0.3 and (ordered == 32).mean() < 0.35
+
+
+def test_rows_launch_classes(host_lib):
+    """Launches that 128 slots cover choose the shape per warp; above, the
+    launch-level classes of 8, 16 and 32 slots a lane stay."""
+    for xmax in (1, 31, 32, 96, 127, 128, 200, 512):
+        for band in range(0, 1024, 5):
+            rows = host_lib.thermite_swg_host_rows_launch(band, xmax) == 1
+            assert rows == ss.rows_launch(band, xmax)
+            assert rows == (ss.slots_needed(band, xmax) <= 128)
+            if not rows:
+                assert ss.slots_per_lane(band, xmax) >= 8
+    assert ss.rows_launch(60, 96) and ss.rows_launch(63, 512)
+    assert ss.rows_launch(1023, 127) and not ss.rows_launch(64, 128)
+
+
+def test_kernels_3_and_4_instantiate_the_three_row_shapes():
+    """Both kernels dispatch a warp's rows to 8, 16 or 32 lanes from
+    warp_lanes, and above 128 slots to the classes of 8, 16 and 32 slots
+    a lane; neither keeps a shape chosen per launch under 128 slots."""
+    import re
+
+    for name, rows_fn in (("swg_forward.cu", "score_rows"),
+                          ("swg_traceback.cu", "trace_rows")):
+        with open(os.path.join(CSRC, name)) as f:
+            src = f.read()
+        assert "swg::warp_lanes(" in src and "swg::rows_launch(" in src
+        lanes = re.findall(rows_fn + r"<(\d+)[,>]", src)
+        assert sorted(set(int(v) for v in lanes)) == [8, 16, 32]
+        wide = re.findall(r"case (\d+): return launch", src)
+        assert [int(v) for v in wide] == [8, 16, 32]
 
 
 def test_one_launch_covers_every_group_shape():

@@ -3,8 +3,9 @@
 // groups: a problem takes LANES lanes of a warp (8, 16 or 32) with SLOTS
 // band slots each in registers (band slot s on group lane s / SLOTS,
 // register s % SLOTS), and a warp carries 32 / LANES problems side by
-// side.  Device code only; the scalar pieces it calls are in
-// swg_stream.cuh.
+// side.  The stream kernels take one shape a launch; the forward and
+// traceback kernels one a warp (rows_launch in swg_stream.cuh).  Device
+// code only; the scalar pieces it calls are in swg_stream.cuh.
 //
 // What a column costs, and what the groups do about it.  An SM issues
 // far fewer shuffle/vote instructions a clock than integer ones, and a
@@ -242,17 +243,18 @@ __device__ __forceinline__ void dp_column(LaneState<SLOTS>& st, const Meta& m,
       st.mi = row0 + col_arg;
       st.mj = j;
     }
-    const int32_t ej = min(j, m.xlen) * MATCH + e_ladder;
-    if (band_max >= st.ms - m.xdrop) {
-      st.cmin = min(st.cmin, band_max - ej);
-    } else {
-      // a real x-drop, not band exhaustion past row xlen
-      if (band_max > MIN_SCORE) {
+    const bool dropped = band_max < st.ms - m.xdrop;
+    if (WALK) {  // the certificate's bookkeeping; the scores need none
+      const int32_t ej = min(j, m.xlen) * MATCH + e_ladder;
+      if (!dropped) {
+        st.cmin = min(st.cmin, band_max - ej);
+      } else if (band_max > MIN_SCORE) {
+        // a real x-drop, not band exhaustion past row xlen
         st.ecap = ej;
         st.rstop = true;
       }
-      st.live = false;
     }
+    if (dropped) st.live = false;
   }
 }
 
@@ -318,6 +320,26 @@ __device__ __forceinline__ Best dp(const Meta& m, const uint8_t* xs,
   return r;
 }
 
+// One problem's shared memory, `base` + the problem_smem_words layout:
+// direction planes, pw words of walk output, the padded x codes, the y
+// codes.
+struct ProblemSmem {
+  uint8_t* planes;
+  uint32_t* words;
+  uint8_t *xs, *ys;
+};
+
+template <int LANES, int SLOTS>
+__device__ __forceinline__ ProblemSmem problem_smem(uint32_t* base, int xmax,
+                                                    int ymax, int pw) {
+  ProblemSmem s;
+  s.planes = reinterpret_cast<uint8_t*>(base);
+  s.words = base + ((ymax + 1) * LANES * dir_bytes(SLOTS) + 3) / 4;
+  s.xs = reinterpret_cast<uint8_t*>(s.words + pw);
+  s.ys = s.xs + x_window_bytes(xmax);
+  return s;
+}
+
 // One problem of a stream kernel: the forward pass with directions, then
 // the walk on the group's first lane (the warp's groups walk side by
 // side) into `words` (pw words of shared memory), the header to hdr_out
@@ -359,19 +381,15 @@ __global__ void __launch_bounds__(128)
   const int64_t p = ((int64_t)blockIdx.x * warps) * G + q;
   const bool valid = p < a.n;
   const int pw = a.smax / 16;
-  uint32_t* base =
-      smem + (int64_t)q * problem_smem_words(a.xmax, a.ymax, pw, LANES, SLOTS);
-  uint8_t* planes = reinterpret_cast<uint8_t*>(base);
-  uint32_t* words =
-      base + ((a.ymax + 1) * LANES * dir_bytes(SLOTS) + 3) / 4;
-  uint8_t* xs = reinterpret_cast<uint8_t*>(words + pw);
-  uint8_t* ys = xs + x_window_bytes(a.xmax);
+  const ProblemSmem sm = problem_smem<LANES, SLOTS>(
+      smem + (int64_t)q * problem_smem_words(a.xmax, a.ymax, pw, LANES, SLOTS),
+      a.xmax, a.ymax, pw);
 
   const Meta m = valid ? unpack_meta(a.meta + p * a.meta_cols, a.meta_cols)
                        : empty_problem();
-  gather_windows<LANES>(m, a, xs, ys);
+  gather_windows<LANES>(m, a, sm.xs, sm.ys);
   __syncwarp();
-  stream_problem<LANES, SLOTS>(m, valid, xs, ys, planes, words, a,
+  stream_problem<LANES, SLOTS>(m, valid, sm.xs, sm.ys, sm.planes, sm.words, a,
                                a.hdr + 2 * p, a.streams + p * pw);
 }
 

@@ -1,7 +1,8 @@
 // Scalar pieces of the SWG kernels (swg_stream.cu, swg_forward.cu,
 // swg_traceback.cu) that run the same on the host and the
 // device: meta unpacking, the nibble gather, the group shape (lanes and
-// slots) and shared-memory sizing of a launch, the direction-plane layout, the
+// slots) of a launch or of one warp's rows, shared-memory sizing, the
+// direction-plane layout, the
 // per-problem traceback walks (2-bit code packing, run-length runs), and
 // the header packing.  Compiled
 // by nvcc for the kernels and by g++ for the host test harness
@@ -97,9 +98,9 @@ __host__ __device__ inline int slots_needed(int band_max, int xmax) {
   return 2 * band_max + 1 < xmax + 1 ? 2 * band_max + 1 : xmax + 1;
 }
 
-// Band slots per lane at 32 lanes a problem (the forward and run-length
-// traceback kernels): the fewest (a power of two <= 32) that cover the
-// launch.  0 when none suffices.
+// Band slots per lane at 32 lanes a problem, one warp each (the forward
+// and run-length traceback kernels above 128 slots a launch): the fewest (a
+// power of two <= 32) that cover the launch.  0 when none suffices.
 __host__ __device__ inline int slots_for(int band_max, int xmax) {
   const int need = slots_needed(band_max, xmax);
   for (int s = 1; s <= 32; s *= 2)
@@ -120,6 +121,54 @@ __host__ __device__ inline Group stream_group(int band_max, int xmax) {
   return Group{0, 0};
 }
 
+// The forward-scores and run-length traceback kernels choose the group
+// shape per warp, not per launch.  Where 32 lanes x ROWS_SLOTS slots cover
+// the launch (rows_launch), a warp owns ROWS_PER_WARP consecutive rows,
+// takes the largest min(2*band + 1, xlen + 1) among them and runs the
+// narrowest of 8, 16 and 32 lanes a problem that covers it: all four rows
+// side by side, two passes of two, or four passes of one.  Neighbouring
+// rows need about the same slots when the caller orders them by ylen, as
+// the batch pipeline does, so a warp's shape fits all its rows.
+constexpr int ROWS_PER_WARP = 4;
+constexpr int ROWS_SLOTS = 4;
+
+__host__ __device__ inline bool rows_launch(int band_max, int xmax) {
+  return slots_needed(band_max, xmax) <= 32 * ROWS_SLOTS;
+}
+
+// Lanes a problem for a warp whose rows need at most `need` band slots.
+__host__ __device__ inline int rows_lanes(int need) {
+  return need <= 8 * ROWS_SLOTS ? 8 : (need <= 16 * ROWS_SLOTS ? 16 : 32);
+}
+
+// One row of the traceback kernel's dense form, (n, 4) int32 [xlen, ylen,
+// band, x_drop]: its windows are rows of bytes, not anchored in a text.
+__host__ __device__ __forceinline__ Meta unpack_params(const int32_t* r) {
+  Meta m;
+  m.y_anchor = m.x_anchor = 0;
+  m.y_dir = m.x_dir = 1;
+  m.xlen = r[0];
+  m.ylen = r[1];
+  m.band = r[2];
+  m.xdrop = r[3];
+  return m;
+}
+
+// Lanes a problem of the warp that owns rows [p0, p0 + ROWS_PER_WARP) of a
+// launch of n rows (`rows` are meta rows of `cols` columns, or params rows
+// of the dense form); rows past n need nothing.
+__host__ __device__ inline int warp_lanes(const int32_t* rows, int cols,
+                                          bool dense, int64_t p0, int64_t n) {
+  int need = 1;
+  for (int k = 0; k < ROWS_PER_WARP && p0 + k < n; ++k) {
+    const Meta m = dense ? unpack_params(rows + 4 * (p0 + k))
+                         : unpack_meta(rows + (p0 + k) * cols, cols);
+    const int s = slots_needed(m.band, m.xlen);
+    need = s > need ? s : need;
+  }
+  return rows_lanes(need);
+}
+
 // Bytes in which a lane stores the 2-bit directions of its SLOTS slots of
 // one column: 1, 2, 4 or 8.
 __host__ __device__ constexpr int dir_bytes(int slots) {
@@ -137,12 +186,19 @@ __host__ __device__ constexpr int x_window_bytes(int xmax) {
 // bytes per column 0..ymax), the walk's output (pw words: the packed
 // stream, or the traceback kernel's rmax runs), then the padded x codes
 // and the y codes as bytes.  The forward kernel passes lanes 0 and pw 0:
-// codes only.
+// codes only.  A warp of the per-warp family holds ROWS_PER_WARP problems
+// at 8 lanes, which covers its fewer problems at 16 and 32 lanes: the
+// planes of a warp take the same bytes in all three shapes.
 __host__ __device__ inline int problem_smem_words(int xmax, int ymax, int pw,
                                                   int lanes, int slots) {
   const int plane = ((ymax + 1) * lanes * dir_bytes(slots) + 3) / 4;
   const int w = plane + pw + x_window_bytes(xmax) / 4 + (ymax + 3) / 4;
   return (w + 1) & ~1;
+}
+
+// Shared memory of one warp of the traceback kernel's per-warp family.
+__host__ __device__ inline int rows_warp_words(int xmax, int ymax, int pw) {
+  return ROWS_PER_WARP * problem_smem_words(xmax, ymax, pw, 8, ROWS_SLOTS);
 }
 
 // Shared memory a block may opt into on sm_90 (227 KB).

@@ -1,6 +1,7 @@
 // Host build of the scalar pieces of swg_stream.cuh, with a plain C
 // interface for tests/test_torch_kernel_host.py: g++ compiles the same
-// meta unpacking, nibble gather, group shapes and shared-memory sizing,
+// meta unpacking, nibble gather, group shapes (a launch's and a warp's) and
+// shared-memory sizing,
 // direction-plane reads, traceback walks (packed codes and run-length
 // runs), code packing and header packing that the CUDA kernels run, so
 // they are held against the plain PyTorch versions without a GPU.
@@ -44,6 +45,27 @@ int thermite_swg_host_stream_group(int band_max, int xmax) {
   return g.lanes * 100 + g.slots;
 }
 
+// -> 1 when a launch of the forward or traceback kernel chooses its group
+// shape per warp, else 0.
+int thermite_swg_host_rows_launch(int band_max, int xmax) {
+  return swg::rows_launch(band_max, xmax) ? 1 : 0;
+}
+
+// Lanes a problem of every warp of a per-warp launch: rows (n, cols) meta,
+// or (n, 4) params of the dense form -> out (ceil(n / ROWS_PER_WARP),).
+void thermite_swg_host_warp_lanes(const int32_t* rows, int cols, int dense,
+                                  int64_t n, int32_t* out) {
+  for (int64_t p0 = 0; p0 < n; p0 += swg::ROWS_PER_WARP)
+    out[p0 / swg::ROWS_PER_WARP] =
+        swg::warp_lanes(rows, cols, dense != 0, p0, n);
+}
+
+// -> shared-memory words of one warp of the traceback kernel's per-warp
+// family.
+int thermite_swg_host_rows_warp_words(int xmax, int ymax, int rmax) {
+  return swg::rows_warp_words(xmax, ymax, rmax);
+}
+
 // -> shared-memory words of one problem; *warps gets the warps per block
 // when a warp carries 32 / lanes problems (lanes 0: one, no planes).
 int thermite_swg_host_smem(int xmax, int ymax, int pw, int lanes, int slots,
@@ -65,8 +87,6 @@ typename Fn::type for_group(int lanes, int slots) {
   switch (lanes * 100 + slots) {
     SWG_GROUP_CASE(8, 4)
     SWG_GROUP_CASE(16, 4)
-    SWG_GROUP_CASE(32, 1)
-    SWG_GROUP_CASE(32, 2)
     SWG_GROUP_CASE(32, 4)
     SWG_GROUP_CASE(32, 8)
     SWG_GROUP_CASE(32, 16)

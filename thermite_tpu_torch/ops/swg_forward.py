@@ -10,9 +10,16 @@ certificate.  The batch pipeline scores every nontrivial problem with it
 when it runs without the C++ engine.
 
 For a CUDA tensor the wrapper launches the hand-written kernel
-(``csrc/swg_forward.cu``, counted in ``swg_forward.launches``); for a CPU
-tensor it runs ``swg_forward_plain``, the plain PyTorch version, which
-is also the referee the card's kernel is held against.
+(``csrc/swg_forward.cu``, counted in ``swg_forward.launches``).  Where
+128 band slots cover the launch (``rows_launch``: band 60 at XMAX 96,
+every band up to 63) each warp of it owns four consecutive rows and runs
+them as sub-warp groups of 8, 16 or 32 lanes x 4 slots, the narrowest
+that covers the largest min(2*band + 1, xlen + 1) among them
+(``warp_lanes``); rows ordered by ylen, as the batch pipeline submits
+them, put short problems side by side in narrow groups.  Above 128 slots
+a launch takes one warp a problem.  For a CPU tensor the wrapper runs
+``swg_forward_plain``, the plain PyTorch version, which is also the
+referee the card's kernel is held against.
 """
 
 from __future__ import annotations

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..constants import (
@@ -72,10 +73,11 @@ def slots_needed(band_max: int, XMAX: int) -> int:
 
 
 def slots_per_lane(band_max: int, XMAX: int) -> int:
-    """Band slots per lane at 32 lanes a problem (the forward and
-    run-length traceback kernels): the fewest (a power of two, at most 32)
-    whose 32*SLOTS slots cover ``slots_needed``.  Same rule as
-    ``slots_for`` in csrc/swg_stream.cuh."""
+    """Band slots per lane at 32 lanes a problem: the fewest (a power of
+    two, at most 32) whose 32*SLOTS slots cover ``slots_needed``.  The
+    span of the plain versions, and above 4 the shape of a launch of the
+    forward and run-length traceback kernels.  Same rule as ``slots_for``
+    in csrc/swg_stream.cuh."""
     need = slots_needed(band_max, XMAX)
     s = 1
     while 32 * s < need:
@@ -96,6 +98,34 @@ def stream_group(band_max: int, XMAX: int):
         if g[0] * g[1] >= need:
             return g
     raise ValueError(f"no group shape covers {need} slots (XMAX {XMAX})")
+
+
+# The forward and run-length traceback kernels choose the group shape per
+# warp where 32 lanes x ROWS_SLOTS slots cover the launch: a warp owns
+# ROWS_PER_WARP consecutive rows (csrc/swg_stream.cuh).
+ROWS_PER_WARP = 4
+ROWS_SLOTS = 4
+
+
+def rows_launch(band_max: int, XMAX: int) -> bool:
+    """Whether a launch of the forward or run-length traceback kernel is
+    of the per-warp family (``rows_launch`` in csrc/swg_stream.cuh)."""
+    return slots_needed(band_max, XMAX) <= 32 * ROWS_SLOTS
+
+
+def warp_lanes(band, xlen):
+    """Lanes a problem (8, 16 or 32, ROWS_SLOTS slots each) that each warp
+    of a per-warp launch takes for its rows: (N,) integer arrays of the
+    rows' bands and xlens in launch order -> (ceil(N / ROWS_PER_WARP),)
+    numpy array.  The narrowest shape that covers the largest
+    min(2*band + 1, xlen + 1) among the warp's rows; same rule as
+    ``warp_lanes`` in csrc/swg_stream.cuh."""
+    need = np.minimum(2 * np.asarray(band, np.int64) + 1,
+                      np.asarray(xlen, np.int64) + 1)
+    need = np.concatenate([need, np.ones(-len(need) % ROWS_PER_WARP, np.int64)])
+    need = np.maximum(need.reshape(-1, ROWS_PER_WARP).max(1), 1)
+    return np.where(need <= 8 * ROWS_SLOTS, 8,
+                    np.where(need <= 16 * ROWS_SLOTS, 16, 32))
 
 
 def dir_bytes(slots: int) -> int:

@@ -30,7 +30,13 @@ The two forms take different inputs and compare different things:
 
 For a CUDA tensor each wrapper launches the hand-written kernel
 (``csrc/swg_traceback.cu``; counted in ``swg_traceback.launches`` and
-``swg_traceback_dense.launches``).  For a CPU tensor it runs the plain
+``swg_traceback_dense.launches``).  Where 128 band slots cover the
+launch (``rows_launch``) each warp of it owns four consecutive rows and
+runs them as sub-warp groups of 8, 16 or 32 lanes x 4 slots, the
+narrowest that covers the largest min(2*band + 1, xlen + 1) among them
+(``warp_lanes``), and the first lane of every group walks its own
+problem, up to four walks side by side; above 128 slots a launch takes
+one warp a problem.  For a CPU tensor it runs the plain
 PyTorch version (``swg_traceback_plain``, ``swg_traceback_dense_plain``),
 which is also the referee the kernel is held against.
 """
@@ -43,6 +49,8 @@ import torch
 
 from .layout import DIR_DEL, DIR_INS, DIR_SUBST, RUN_OP_SHIFT
 from .swg_stream import (
+    ROWS_PER_WARP,
+    ROWS_SLOTS,
     _check,
     _current_stream,
     _forward_plain,
@@ -60,10 +68,16 @@ SMEM_OPTIN_BYTES = 232448
 
 
 def traceback_smem_bytes(XMAX: int, YMAX: int, RMAX: int, slots: int) -> int:
-    """Shared memory of one problem (one warp) of the kernel: direction
-    planes (32 lanes x ``dir_bytes(slots)`` bytes per column 0..YMAX),
-    RMAX run words, then the x and y windows as bytes
-    (``problem_smem_words`` in swg_stream.cuh)."""
+    """Shared memory of one warp of a launch whose slot class is ``slots``
+    (``slots_per_lane``).  Up to 4 the launch is of the per-warp family: a
+    warp holds ROWS_PER_WARP problems at 8 lanes x 4 slots, each with its
+    direction planes (8 bytes per column 0..YMAX), RMAX run words and the
+    x and y windows as bytes (``rows_warp_words`` in swg_stream.cuh);
+    that covers its two problems at 16 lanes and its one at 32.  Above, a
+    warp holds one problem at 32 lanes (``problem_smem_words``)."""
+    if slots <= ROWS_SLOTS:
+        return 4 * ROWS_PER_WARP * problem_smem_words(XMAX, YMAX, RMAX, 8,
+                                                      ROWS_SLOTS)
     return 4 * problem_smem_words(XMAX, YMAX, RMAX, 32, slots)
 
 
@@ -174,15 +188,15 @@ def swg_traceback_dense_plain(x, y, params, XMAX: int, YMAX: int,
 def _outputs_for_launch(n: int, XMAX: int, YMAX: int, RMAX: int, bmax: int,
                         device):
     """Empty outputs of a launch, after the shape checks the kernel
-    makes: a slot class must cover the band and one problem's shared
-    memory must fit the opt-in limit."""
+    makes: a slot class must cover the band and one warp's shared memory
+    must fit the opt-in limit."""
     slots = slots_per_lane(bmax, XMAX)
     need = traceback_smem_bytes(XMAX, YMAX, RMAX, slots)
     if need > SMEM_OPTIN_BYTES:
         raise ValueError(
-            f"swg_traceback: one problem needs {need} bytes of shared "
-            f"memory at XMAX {XMAX}, YMAX {YMAX}, RMAX {RMAX}, {slots} "
-            f"slots per lane; the limit is {SMEM_OPTIN_BYTES}")
+            f"swg_traceback: one warp needs {need} bytes of shared "
+            f"memory at XMAX {XMAX}, YMAX {YMAX}, RMAX {RMAX}, slot class "
+            f"{slots}; the limit is {SMEM_OPTIN_BYTES}")
     meta = torch.empty((n, 4), dtype=torch.int32, device=device)
     runs = torch.empty((n, RMAX), dtype=torch.int32, device=device)
     return meta, runs

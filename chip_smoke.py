@@ -1458,10 +1458,14 @@ def phase_entry_points(opts, aligner, tmp, recs, pairs, header, single_sam):
 
 def sass_column_loops(lib_path: str) -> dict:
     """{kernel entry: [instruction counts of each column loop]} from
-    `cuobjdump -sass`: the innermost loops (a backward branch and its
-    target, with no other such loop inside) that hold SHFL, REDUX or VOTE
-    instructions, counted by kind, in address order.  A stream kernel has
-    one; a per-warp kernel one for each of its three group shapes."""
+    `cuobjdump -sass`: the innermost loops (a predicated backward branch
+    and its target, with no other such loop inside; an unpredicated one
+    returns from a cold block placed after the code) that hold SHFL, REDUX
+    or VOTE instructions, counted by kind, in address order.  A stream
+    kernel has one; a per-warp kernel one for each of its three group
+    shapes (16, 32 and 8 lanes in the order the compiler lays them out,
+    told apart by their 1 + log2(lanes) scan shuffles).  A loop holds both
+    forms of the column, anchored and sliding; a column runs one."""
     import re
     import shutil
 
@@ -1474,20 +1478,20 @@ def sass_column_loops(lib_path: str) -> dict:
         name = block.split("\n", 1)[0].strip()
         ins = [(int(a, 16), t) for a, t in re.findall(
             r"/\*([0-9a-f]{4,})\*/\s+([^;]+);", block)]
-        loops = []
+        loops = {}  # loop head -> its last backward branch
         for addr, text in ins:
-            m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
-            if not m or int(m.group(1), 16) >= addr:
+            m = re.search(r"^@.*\bBRA\b.*?0x([0-9a-f]+)", text.strip())
+            if m and int(m.group(1), 16) < addr:
+                loops[int(m.group(1), 16)] = addr
+        mix[name] = []
+        for head, end in sorted(loops.items()):
+            if any(head <= h and e <= end and (h, e) != (head, end)
+                   for h, e in loops.items()):
                 continue
-            body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
+            body = [t for a, t in ins if head <= a <= end]
             if any(k in t for t in body for k in kinds[:3]):
-                loops.append((int(m.group(1), 16), addr, body))
-        inner = [lp for lp in loops
-                 if not any(o is not lp and lp[0] <= o[0] and o[1] <= lp[1]
-                            for o in loops)]
-        if inner:
-            mix[name] = [{**{k: sum(k in t for t in body) for k in kinds},
-                          "all": len(body)} for _, _, body in sorted(inner)]
+                mix[name].append({**{k: sum(k in t for t in body)
+                                     for k in kinds}, "all": len(body)})
     return mix
 
 

@@ -119,6 +119,13 @@ struct Best {
   bool cert;  // band-exactness certificate (WALK only)
 };
 
+// The column max's key (dp_column): slot in the low KEY_BITS bits.
+constexpr int KEY_BITS = 10;  // 32 lanes x 32 slots at most
+constexpr int32_t KEY_SCALE = 1 << KEY_BITS;
+// What an uncomputed slot holds: under every computed cell's score, far
+// enough from it that no max takes it, and its key does not overflow.
+constexpr int32_t NO_CELL = -(1 << 20);
+
 // max(a + b, c) in one instruction (Hopper's DPX VIADDMNMX).
 __device__ __forceinline__ int32_t add_max(int32_t a, int32_t b, int32_t c) {
   return __viaddmax_s32(a, b, c);
@@ -185,28 +192,34 @@ __device__ __forceinline__ void dp_column(LaneState<SLOTS>& st, const Meta& m,
     const int32_t dm = in_p1 ? dr : st.D[k];
     comp[k] = s <= lim;
     // at slot 2b of a sliding band the left cell is outside the band: it
-    // is slot 2b + 1, which is never computed and holds MIN_SCORE + 1 in D
-    // and C from the start, so this is MIN_SCORE there with no test
+    // is slot 2b + 1, which is never computed and holds about NO_CELL in D
+    // and C from the start, so the cell's own score never comes from it
+    // with no test
     const int32_t cv = add_max(cp, GAP_EXTEND, dp + GAP_EXTEND + GAP_OPEN);
     const bool row_is0 = !SLIDE && s == 0 && in_p1;
     match[k] = st.xr[k] == yj && !row_is0;
     dval[k] = row_is0 ? MIN_SCORE : dm + (match[k] ? MATCH : MISMATCH);
     cval[k] = cv;
     aval[k] = max(dval[k], cv);
-    run = add_max(comp[k] ? aval[k] : MIN_SCORE, -s * GAP_EXTEND, run);
+    // a slot that is not computed needs no mask here: the computed slots
+    // are the lowest ones, and the chain only runs towards higher slots
+    run = add_max(aval[k], -s * GAP_EXTEND, run);
     incl[k] = run;
   }
-  // insertion chain: exclusive prefix max of (A - s*e) over lower slots
+  // insertion chain: exclusive prefix max of (A - s*e) over lower slots;
+  // a lane with no lane `off` below it in its group gets its own value
+  // back from the shuffle, so the max needs no test of the lane
   int32_t ex = __shfl_up_sync(FULL, run, 1, LANES);
   if (gl == 0) ex = PAD;
 #pragma unroll
-  for (int off = 1; off < LANES; off <<= 1) {
-    const int32_t v = __shfl_up_sync(FULL, ex, off, LANES);
-    if (gl >= off) ex = max(ex, v);
-  }
+  for (int off = 1; off < LANES; off <<= 1)
+    ex = max(ex, __shfl_up_sync(FULL, ex, off, LANES));
 
-  int32_t dfm[SLOTS];
-  int32_t lmax = MIN_SCORE;
+  // A slot's key, score * KEY_SCALE + (KEY_SCALE - 1 - slot): one max over
+  // the group gives the column max and the lowest slot reaching it.  A
+  // computed cell's score lies above NO_CELL (it is reachable inside the
+  // band, at no worse than -4 a step), slots lie under KEY_SCALE.
+  int32_t lmax = NO_CELL * KEY_SCALE - (SLOTS - 1);
   uint32_t bits[2] = {0u, 0u};
 #pragma unroll
   for (int k = 0; k < SLOTS; ++k) {
@@ -215,12 +228,12 @@ __device__ __forceinline__ void dp_column(LaneState<SLOTS>& st, const Meta& m,
     // R = o + s*e + prefix; at slot 0 the prefix is PAD, far below every
     // computed cell, which stands for the reference's MIN_SCORE there
     const int32_t dn = add_max(pm, GAP_OPEN + s * GAP_EXTEND, aval[k]);
-    if (comp[k]) {
-      st.D[k] = dn;
-      st.C[k] = cval[k];
-    }
-    dfm[k] = comp[k] ? dn : MIN_SCORE;
-    lmax = k == 0 ? dfm[0] : max(lmax, dfm[k]);
+    // an uncomputed slot holds NO_CELL in D; its C needs no mask: it is
+    // made of the D and C of uncomputed slots only, stays far below every
+    // score, and no computed slot reads it before it is computed itself
+    st.D[k] = comp[k] ? dn : NO_CELL;
+    st.C[k] = cval[k];
+    lmax = max(lmax, st.D[k] * KEY_SCALE - k);
     if (WALK) {
       int dir = dn == dval[k] ? (match[k] ? DIR_MATCH : DIR_SUBST)
                               : (dn == cval[k] ? DIR_DEL : DIR_INS);
@@ -229,14 +242,12 @@ __device__ __forceinline__ void dp_column(LaneState<SLOTS>& st, const Meta& m,
     }
   }
   if (WALK && act) store_dirs<SLOTS>(planes, j * LANES + gl, bits);
-  // column max and the lowest slot reaching it
-  const int32_t band_max = __reduce_max_sync(gmask, lmax);
-  int lk = SLOTS;
-#pragma unroll
-  for (int k = SLOTS - 1; k >= 0; --k)
-    if (dfm[k] == band_max) lk = k;
-  const int col_arg = (int)__reduce_min_sync(
-      gmask, lk < SLOTS ? (unsigned)(s0 + lk) : 0xFFFFu);
+  // column max and the lowest slot reaching it; a column without a cell
+  // reads NO_CELL
+  const int32_t best =
+      __reduce_max_sync(gmask, lmax + (KEY_SCALE - 1 - s0));
+  const int32_t band_max = best >> KEY_BITS;
+  const int col_arg = KEY_SCALE - 1 - (best & (KEY_SCALE - 1));
   if (act) {
     if (band_max > st.ms) {  // strict: the first cell reaching the max wins
       st.ms = band_max;
@@ -248,7 +259,7 @@ __device__ __forceinline__ void dp_column(LaneState<SLOTS>& st, const Meta& m,
       const int32_t ej = min(j, m.xlen) * MATCH + e_ladder;
       if (!dropped) {
         st.cmin = min(st.cmin, band_max - ej);
-      } else if (band_max > MIN_SCORE) {
+      } else if (band_max > NO_CELL) {
         // a real x-drop, not band exhaustion past row xlen
         st.ecap = ej;
         st.rstop = true;
@@ -276,11 +287,10 @@ __device__ __forceinline__ Best dp(const Meta& m, const uint8_t* xs,
 #pragma unroll
     for (int k = 0; k < SLOTS; ++k) {
       const int s = gl * SLOTS + k;
-      // slots past 2b are never computed; MIN_SCORE + 1 there makes the
-      // deletion score of slot 2b come out MIN_SCORE (see dp_column)
-      st.D[k] = s == 0 ? 0 : (s <= b2 ? s * GAP_EXTEND + GAP_OPEN
-                                      : MIN_SCORE + 1);
-      st.C[k] = s == 0 ? 0 : (s <= b2 ? MIN_SCORE : MIN_SCORE + 1);
+      // slots past 2b are never computed: NO_CELL there keeps the deletion
+      // score of slot 2b under every score (see dp_column)
+      st.D[k] = s == 0 ? 0 : (s <= b2 ? s * GAP_EXTEND + GAP_OPEN : NO_CELL);
+      st.C[k] = s == 0 ? 0 : (s <= b2 ? MIN_SCORE : NO_CELL);
       st.xr[k] = xs[min(s, nx + 1)];
       if (WALK && s <= b2) bits[k >> 4] |= (uint32_t)DIR_INS << (2 * (k & 15));
     }

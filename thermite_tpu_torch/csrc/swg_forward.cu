@@ -28,8 +28,11 @@
 // shuffles of a column are shared by the problems of a pass, and a short
 // problem no longer pays for lanes it cannot use.  Rows ordered by ylen, as
 // the batch pipeline submits them, need about the same slots as their
-// neighbours and end at about the same column.  Above 128 slots a launch
-// takes one warp a problem at 8, 16 or 32 slots a lane, as before.
+// neighbours and end at about the same column; blocks take the rows from
+// the last to the first, so such a launch starts its longest warps first
+// and ends on its shortest.  Rows in no order lose that: a warp then waits
+// on its longest row.  Above 128 slots a launch takes one warp a problem
+// at 8, 16 or 32 slots a lane, as before.
 
 #include "swg_dp.cuh"
 
@@ -77,8 +80,10 @@ __global__ void __launch_bounds__(WARPS * 32)
     swg_forward_rows_kernel(const Args a) {
   extern __shared__ uint32_t smem[];
   const int warp = threadIdx.x >> 5;
-  const int64_t p0 =
-      ((int64_t)blockIdx.x * WARPS + warp) * swg::ROWS_PER_WARP;
+  // the last rows first: a caller that orders rows by ylen has its longest
+  // problems there, and the launch then ends on its shortest warps
+  const int64_t p0 = ((int64_t)(gridDim.x - 1 - blockIdx.x) * WARPS + warp) *
+                     swg::ROWS_PER_WARP;
   if (p0 >= a.n) return;  // whole warps only; no block barrier follows
   const int words = swg::problem_smem_words(a.xmax, a.ymax, 0, 0, 0);
   uint32_t* win = smem + warp * swg::ROWS_PER_WARP * words;

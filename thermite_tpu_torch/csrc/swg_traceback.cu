@@ -39,8 +39,10 @@
 // sized for four problems at 8 lanes (planes, rmax run words and windows
 // each), which covers the other two.  The runs are staged in shared memory
 // and copied out by the problem's lanes, so each problem writes one
-// contiguous zero-filled row.  Above 128 slots a launch takes one warp a
-// problem at 8, 16 or 32 slots a lane, as before.  Warps per block follow
+// contiguous zero-filled row.  Blocks take the rows from the last to the
+// first, so a launch whose rows are ordered by ylen starts its longest
+// warps first and ends on its shortest.  Above 128 slots a launch takes
+// one warp a problem at 8, 16 or 32 slots a lane, as before.  Warps per block follow
 // from the per-warp shared memory; a shape whose one warp does not fit the
 // 227 KB opt-in limit is refused before launch.  It is the reference's
 // differential-testing kernel: no pipeline calls it.
@@ -143,8 +145,10 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
     swg_traceback_rows_kernel(const TbArgs a, int warps) {
   extern __shared__ uint32_t smem[];
   const int warp = threadIdx.x >> 5;
-  const int64_t p0 =
-      ((int64_t)blockIdx.x * warps + warp) * swg::ROWS_PER_WARP;
+  // the last rows first: a caller that orders rows by ylen has its longest
+  // problems there, and the launch then ends on its shortest warps
+  const int64_t p0 = ((int64_t)(gridDim.x - 1 - blockIdx.x) * warps + warp) *
+                     swg::ROWS_PER_WARP;
   if (p0 >= a.g.n) return;  // whole warps only; no block barrier follows
   uint32_t* base = smem + warp * swg::rows_warp_words(a.g.xmax, a.g.ymax,
                                                       a.rmax);

@@ -103,8 +103,8 @@ kernels, reads the instruction mix of every kernel's column loops from
 the machine code, and times every kernel over 20 launches after 3
 warm-up launches on the synthetic chunk shapes (as generated and with
 rows ordered by ylen) and on one real syn45 chunk (narrowed and at full
-band, in the pipeline's row order and shuffled), into OUT.json.  kernel_ab.py runs that mode of two checkouts
-in turns on one card.
+band, in the pipeline's row order and shuffled), into OUT.json.
+kernel_ab.py runs that mode of two checkouts in turns on one card.
 """
 
 from __future__ import annotations

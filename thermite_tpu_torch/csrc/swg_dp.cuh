@@ -10,13 +10,13 @@
 // What a column costs, and what the groups do about it.  An SM issues
 // far fewer shuffle/vote instructions a clock than integer ones, and a
 // column needs, whatever LANES is: two neighbour shuffles, the insertion
-// chain's exclusive prefix max (1 + log2(LANES) shuffles), one redux for
-// the column max and one for its lowest slot.  With 32 / LANES problems
-// in the warp those instructions are shared by all of them, so at 8
-// lanes a problem pays a quarter of 7 instead of the 14 that one warp per
-// problem paid at one slot a lane (3 neighbour shuffles, 6 for the scan,
-// a redux, a ballot and a shuffle for the arg-min, two direction
-// ballots).  Within a lane the chain over its SLOTS slots is a serial
+// chain's exclusive prefix max (1 + log2(LANES) shuffles), and one redux
+// for the column max and its lowest slot together (a max over keys that
+// hold the score above the slot).  With 32 / LANES problems in the warp
+// those instructions are shared by all of them, so at 8 lanes a problem
+// pays a quarter of 7 instead of the 14 that one warp per problem paid at
+// one slot a lane (3 neighbour shuffles, 6 for the scan, a redux, a
+// ballot and a shuffle for the arg-min, two direction ballots).  Within a lane the chain over its SLOTS slots is a serial
 // running max.  Directions need no ballot: each lane packs the 2-bit
 // directions of its own slots and stores them itself.
 //
@@ -228,9 +228,11 @@ __device__ __forceinline__ void dp_column(LaneState<SLOTS>& st, const Meta& m,
     // R = o + s*e + prefix; at slot 0 the prefix is PAD, far below every
     // computed cell, which stands for the reference's MIN_SCORE there
     const int32_t dn = add_max(pm, GAP_OPEN + s * GAP_EXTEND, aval[k]);
-    // an uncomputed slot holds NO_CELL in D; its C needs no mask: it is
-    // made of the D and C of uncomputed slots only, stays far below every
-    // score, and no computed slot reads it before it is computed itself
+    // an uncomputed slot holds NO_CELL in D.  Its C needs no mask: the
+    // computed slots are the lowest ones and never become more, so none
+    // reads the C of a slot that the column before left uncomputed, but
+    // slot 2b of a sliding band, whose neighbour 2b + 1 holds about NO_CELL
+    // in C too
     st.D[k] = comp[k] ? dn : NO_CELL;
     st.C[k] = cval[k];
     lmax = max(lmax, st.D[k] * KEY_SCALE - k);

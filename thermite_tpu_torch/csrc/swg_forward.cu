@@ -32,7 +32,7 @@
 // the last to the first, so such a launch starts its longest warps first
 // and ends on its shortest.  Rows in no order lose that: a warp then waits
 // on its longest row.  Above 128 slots a launch takes one warp a problem
-// at 8, 16 or 32 slots a lane, as before.
+// at 8, 16 or 32 slots a lane.
 
 #include "swg_dp.cuh"
 

@@ -42,7 +42,7 @@
 // contiguous zero-filled row.  Blocks take the rows from the last to the
 // first, so a launch whose rows are ordered by ylen starts its longest
 // warps first and ends on its shortest.  Above 128 slots a launch takes
-// one warp a problem at 8, 16 or 32 slots a lane, as before.  Warps per block follow
+// one warp a problem at 8, 16 or 32 slots a lane.  Warps per block follow
 // from the per-warp shared memory; a shape whose one warp does not fit the
 // 227 KB opt-in limit is refused before launch.  It is the reference's
 // differential-testing kernel: no pipeline calls it.

@@ -6,6 +6,8 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --kernels-only  # phases 1, 2, 2b, 2c and 2d
     python3 chip_smoke.py --time-kernels OUT.json  # no phases: kernel times
+    python3 chip_smoke.py --mesh-only     # phases 1, 3 and 3f: for a host
+                                          # with several cards
 
 Phases, each printed with its own timing; any failure exits non-zero
 before the result lines are printed:
@@ -58,6 +60,18 @@ before the result lines are printed:
    reads: the BAM bytes equal the C++ engine's on those reads; the
    forward-scores and general-band kernels each ran once per chunk or
    more.
+3f. the mesh path at full width (BatchAligner(mesh=...),
+   parallel/mesh.py): the 49152 reads through a mesh of every local card
+   (make_mesh(torch.cuda.device_count())) and through a mesh that names
+   cuda:0 four times, so that the row split, the four launches a chunk,
+   the per-device winners gather and the merge run with the real kernel
+   on one card; the BAM bytes equal phase 3's, the packed kernel's launch
+   count is 1x and 4x phase 3's, reads/s over 5 runs printed beside phase
+   3's, and a profiled run's busy share.  Then 4096 reads at full band and
+   4096 without the C++ engine on the four-entry mesh (and, on a host with
+   several cards, on the mesh of all of them): the bytes of phases 3b and
+   3c on those reads, one launch a mesh entry and chunk of each kernel on
+   the path.
 4. C++ referee: every row of one syn45 chunk that the kernel certified
    equals the full-band scalar SWG of the C++ engine (native.patch_rows);
    the kernel's time and bound on that chunk in the pipeline's row order,
@@ -83,7 +97,10 @@ before the result lines are printed:
    aligning 2000 reads to SAM, equal to the in-memory emit; the CLI with
    --paired and with --engine cpp, two host shards joined by merge, and
    the wrapper's record surfaces, each equal to its in-memory
-   counterpart.
+   counterpart; the CLI with -v after the subcommand, with --mesh -1, with
+   --profile DIR (one trace file that holds a stream_kernel event on the
+   card), with --coordinator on two host shards joined by merge, and
+   under THERMITE_NO_EMIT=1, each with the bytes of the plain CLI run.
 
 Every timed kernel is printed beside its bound: the larger of its
 integer operations (cells the plain version computes on the same inputs x
@@ -105,6 +122,10 @@ warm-up launches on the synthetic chunk shapes (as generated and with
 rows ordered by ylen) and on one real syn45 chunk (narrowed and at full
 band, in the pipeline's row order and shuffled), into OUT.json.
 kernel_ab.py runs that mode of two checkouts in turns on one card.
+
+--mesh-only runs phases 1, 3 and 3f and prints no result lines.  On a host
+with several cards phase 3f's first mesh is all of them, so this mode is
+the check that launches, copies and events go to the right card.
 """
 
 from __future__ import annotations
@@ -951,9 +972,10 @@ def phase_syn45(tmp):
     check(stats.chunks >= 1 and launches["swg_stream"] >= stats.chunks,
           f"{launches} kernel launches for {stats.chunks} chunks")
     check(mapped > 0.9, f"only {100 * mapped:.2f}% of reads mapped")
-    timed_runs(lambda: aligner.align_batch_emit(recs, True), len(recs), wall)
+    rate = timed_runs(lambda: aligner.align_batch_emit(recs, True), len(recs),
+                      wall)
     _profile_run(aligner, recs)
-    return index, opts, aligner, recs, warm, raw, launches["swg_stream"]
+    return index, opts, aligner, recs, warm, raw, launches["swg_stream"], rate
 
 
 def phase_full_band(index, opts, recs, warm, raw_narrow):
@@ -1026,27 +1048,19 @@ def _profile_run(aligner, recs):
     union of its kernel and copy intervals) against the run's wall time
     (traced, so slower), and the device time by kernel or copy."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from thermite_tpu_torch.utils.profile import device_busy, profiled
 
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiled(cuda=True) as prof:
             t0 = time.perf_counter()
             aligner.align_batch_emit(recs, True)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                       for e in prof.events() if e.device_type == DeviceType.CUDA)
+        busy_us, by_name = device_busy(prof)
     except RuntimeError as e:
         log(f"  profiler unavailable ({e}); device busy share not measured")
         return
-    busy_us, reach, by_name = 0, float("-inf"), {}
-    for a, b, name in spans:
-        busy_us += max(b - max(a, reach), 0)
-        reach = max(reach, b)
-        t, n = by_name.get(name, (0, 0))
-        by_name[name] = (t + b - a, n + 1)
     if not busy_us:
         log("  profiler recorded no device time; device busy share not measured")
         return
@@ -1055,6 +1069,81 @@ def _profile_run(aligner, recs):
         f"({100 * busy / wall:.2f}% of wall, idle {100 - 100 * busy / wall:.2f}%)")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
         log(f"    {name[:70]}: {t / 1e3:.3f} ms over {n} calls")
+
+
+def phase_mesh(index, opts, aligner, recs, warm, raw, base_launches,
+               base_rate):
+    """The mesh path: phase 3's reads through a mesh of every local card
+    and through cuda:0 named four times (bytes == phase 3's, the packed
+    kernel's launches 1x and 4x phase 3's, reads/s beside phase 3's), then
+    4096 reads at full band and without the C++ engine on the four-entry
+    mesh (bytes == the single-device paths')."""
+    import torch
+
+    from thermite_tpu_torch.align.batch import BatchAligner
+    from thermite_tpu_torch.parallel.mesh import make_mesh
+
+    n_cards = torch.cuda.device_count()
+    four = (torch.device("cuda", 0),) * 4
+    for name, mesh in ((f"make_mesh({n_cards})", make_mesh(n_cards)),
+                       ("cuda:0 four times", four)):
+        meshed = BatchAligner(index, opts, mesh=mesh)
+        meshed.align_batch_emit(warm, True)  # as phase 3: text, first launches
+        torch.cuda.synchronize()
+        meshed.stats.reset()
+        reset_launches()
+        t0 = time.perf_counter()
+        got = meshed.align_batch_emit(recs, True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        stats = meshed.stats
+        log(f"  mesh {name}: {len(recs)} reads, {stats.chunks} chunks, "
+            f"launches {launches} (phase 3: swg_stream {base_launches}), "
+            f"rows a launch {meshed._NFWD1 // len(mesh)}, {len(got)} BAM "
+            f"bytes, == phase 3: {got == raw}, cert patches "
+            f"{stats.cert_patches}, wall {wall:.3f} s")
+        log(stats.report())
+        check(got == raw, f"mesh {name}: BAM bytes differ from phase 3's")
+        check(launches["swg_stream"] == len(mesh) * base_launches,
+              f"mesh {name}: {launches['swg_stream']} launches, phase 3 made "
+              f"{base_launches} on one device")
+        check(launches["swg_stream_wide"] == 0 and launches["swg_forward"] == 0,
+              f"mesh {name}: {launches}")
+        rate = timed_runs(lambda: meshed.align_batch_emit(recs, True),
+                          len(recs), wall)
+        log(f"  mesh {name}: median {rate:.1f} reads/s beside phase 3's "
+            f"{base_rate:.1f} (one device, no mesh)")
+        _profile_run(meshed, recs)
+        del meshed
+
+    sub = recs[:N_NO_NATIVE]
+    want = aligner.align_batch_emit(sub, True)
+    meshes = [("cuda:0 four times", four)]
+    if n_cards > 1:
+        meshes.append((f"make_mesh({n_cards})", make_mesh(n_cards)))
+    for (mesh_name, mesh), (name, kw, narrow, counted) in (
+            (m, c) for m in meshes for c in (
+                ("full band", {}, 0, ("swg_stream_wide",)),
+                ("no C++ engine", {"use_native": False}, 15,
+                 ("swg_forward", "swg_stream_wide")))):
+        meshed = BatchAligner(index, opts, mesh=mesh, **kw)
+        meshed.narrow_band = narrow
+        reset_launches()
+        t0 = time.perf_counter()
+        got = meshed.align_batch_emit(sub, True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        chunks = meshed.stats.chunks
+        log(f"  mesh {mesh_name}, {name}: {len(sub)} reads, {chunks} "
+            f"chunks, launches {launches}, == the single-device path: "
+            f"{got == want}, wall {wall:.3f} s (first run, with the uploads)")
+        check(got == want, f"mesh {mesh_name}, {name}: BAM bytes differ")
+        check(chunks >= 1 and launches["swg_stream"] == 0
+              and all(launches[k] == len(mesh) * chunks for k in counted),
+              f"mesh {mesh_name}, {name}: {launches} launches for {chunks} "
+              "chunks")
 
 
 def phase_cpp_referee(aligner, recs):
@@ -1451,6 +1540,39 @@ def phase_entry_points(opts, aligner, tmp, recs, pairs, header, single_sam):
             psub, False, strip_tags=True)
     results["wrapper align_read_pairs_records"] = (0, same,
                                                    time.perf_counter() - t0)
+    rc, got, s = cli(os.path.join(tmp, "v_after.sam"), fq, "-v")
+    results["CLI -v after the subcommand"] = (rc, got == single_sam, s)
+    rc, got, s = cli(os.path.join(tmp, "mesh.sam"), fq, "--mesh", "-1")
+    results["CLI --mesh -1"] = (rc, got == single_sam, s)
+    trace_dir = os.path.join(tmp, "trace")
+    rc, got, s = cli(os.path.join(tmp, "profiled.sam"), fq, "--profile",
+                     trace_dir)
+    traces = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    on_card = [e for e in events if "stream_kernel" in e.get("name", "")]
+    log(f"  --profile: {traces}, {len(events)} events, {len(on_card)} "
+        f"stream_kernel events (categories "
+        f"{sorted({e.get('cat') for e in on_card})})")
+    results["CLI --profile"] = (rc, got == single_sam and len(traces) == 1
+                                and len(on_card) >= 1, s)
+    coord_out = os.path.join(tmp, "coord.sam")
+    t0 = time.perf_counter()
+    rcs = [cli_main(["align", art, fq, "-o", coord_out, *flags, "--num-hosts",
+                     "2", "--host-id", h, "--coordinator", "localhost:9876"])
+           for h in ("0", "1")]
+    merged = os.path.join(tmp, "coord_merged.sam")
+    rcs.append(cli_main(["merge", "-o", merged, coord_out + ".shard000",
+                         coord_out + ".shard001"]))
+    with open(merged, "rb") as f:
+        results["--coordinator, 2 host shards + merge"] = (
+            max(rcs), f.read() == single_sam, time.perf_counter() - t0)
+    os.environ["THERMITE_NO_EMIT"] = "1"
+    try:
+        rc, got, s = cli(os.path.join(tmp, "no_emit.sam"), fq)
+    finally:
+        del os.environ["THERMITE_NO_EMIT"]
+    results["CLI under THERMITE_NO_EMIT=1"] = (rc, got == single_sam, s)
     for name, (rc, same, s) in results.items():
         log(f"  {name}: rc {rc}, == in-memory: {same} ({s:.1f} s)")
         check(rc == 0 and same, f"{name} differs from its in-memory counterpart")
@@ -1579,7 +1701,7 @@ def time_kernels(out_path: str) -> None:
         json.dump(res, f, indent=1)
 
 
-def run(kernels_only: bool = False) -> dict:
+def run(kernels_only: bool = False, mesh_only: bool = False) -> dict:
     import torch
 
     t = time.perf_counter()
@@ -1609,6 +1731,15 @@ def run(kernels_only: bool = False) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda", 0)
     log(f"phase 1 done in {time.perf_counter() - t:.1f} s")
+    if mesh_only:
+        os.makedirs(os.path.join(ROOT, "data", "out"), exist_ok=True)
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(ROOT, "data", "out")) as tmp:
+            log("phase 3: syn45 main path (BatchAligner.align_batch_emit, BAM)")
+            index, opts, aligner, recs, warm, raw, n3, rate3 = phase_syn45(tmp)
+            log("phase 3f: syn45 under a mesh (BatchAligner(mesh=...))")
+            phase_mesh(index, opts, aligner, recs, warm, raw, n3, rate3)
+        return {}
 
     t = time.perf_counter()
     log("phase 2: packed stream kernel vs swg_stream_plain (bit-exact)")
@@ -1641,8 +1772,8 @@ def run(kernels_only: bool = False) -> dict:
                 dir=os.path.join(ROOT, "data", "out")) as tmp:
             t = time.perf_counter()
             log("phase 3: syn45 main path (BatchAligner.align_batch_emit, BAM)")
-            index, opts, aligner, recs, warm, raw, launches["swg_stream"] = \
-                phase_syn45(tmp)
+            (index, opts, aligner, recs, warm, raw, launches["swg_stream"],
+             rate3) = phase_syn45(tmp)
             log(f"phase 3 done in {time.perf_counter() - t:.1f} s")
 
             t = time.perf_counter()
@@ -1650,12 +1781,18 @@ def run(kernels_only: bool = False) -> dict:
             launches["swg_stream_wide"] = phase_full_band(index, opts, recs,
                                                           warm, raw)
             log(f"phase 3b done in {time.perf_counter() - t:.1f} s")
-            del warm, raw
 
             t = time.perf_counter()
             log(f"phase 3c: syn45 without the C++ engine on {N_NO_NATIVE} reads")
             launches["swg_forward"] = phase_no_native(index, opts, aligner, recs)
             log(f"phase 3c done in {time.perf_counter() - t:.1f} s")
+
+            t = time.perf_counter()
+            log("phase 3f: syn45 under a mesh (BatchAligner(mesh=...))")
+            phase_mesh(index, opts, aligner, recs, warm, raw,
+                       launches["swg_stream"], rate3)
+            log(f"phase 3f done in {time.perf_counter() - t:.1f} s")
+            del warm, raw
 
             t = time.perf_counter()
             log(f"phase 3d: paired syn45, {N_READS // 2} FR pairs "
@@ -1738,6 +1875,11 @@ def main() -> int:
     try:
         if "--time-kernels" in sys.argv[1:]:
             time_kernels(sys.argv[sys.argv.index("--time-kernels") + 1])
+            return 0
+        if "--mesh-only" in sys.argv[1:]:
+            run(mesh_only=True)
+            print("chip_smoke: phases 1, 3 and 3f passed on "
+                  f"{torch.cuda.device_count()} card(s)")
             return 0
         result = run(kernels_only="--kernels-only" in sys.argv[1:])
     except PhaseFailed as e:

@@ -1,6 +1,10 @@
 """The port's other entry points on the CPU give the reference's bytes:
 the embedding wrapper, ``--engine cpp`` (``CppAligner``), host shards
-joined by ``merge``, and the flags that are not ported yet.
+joined by ``merge``, and the CLI surface the reference has: ``-v`` on
+either side of the subcommand, the ``index`` flags, ``--mesh``,
+``--profile``, ``--coordinator``, and the environment knobs
+``THERMITE_PROBLEM_BUDGET``, ``THERMITE_PIPELINE_DEPTH`` and
+``THERMITE_NO_EMIT``.
 
 The wrapper (device="cpu") equals the reference wrapper on the cases of
 tests/test_wrapper.py and tests/test_paired_emit.py; ``CppAligner``
@@ -8,20 +12,29 @@ equals the batch emit, the reference's ``CppAligner``, at any thread
 count and at ``THERMITE_NARROW_BAND=0``, paired too; two shards merged
 equal one run, for SAM and BAM, single-end and paired."""
 
+import glob
 import gzip
+import inspect
+import json
+import os
 
+import numpy as np
 import pytest
 import torch
 
 from fixtures import READS, write_fixture
 from test_paired_emit import make_mixed_pairs
+from thermite_tpu.align.batch import BatchAligner as RefBatchAligner
 from thermite_tpu.align.cpu import CppAligner as RefCppAligner
+from thermite_tpu.align.run import align_reads_from_file as ref_align_file
 from thermite_tpu.cli import main as ref_main
 from thermite_tpu.index.build import Index
 from thermite_tpu.testing.synth import make_truth_reads, write_fastq, write_synth_genome
 from thermite_tpu.wrapper import ThermiteAligner as RefWrapper
 from thermite_tpu_torch.align.batch import BatchAligner
 from thermite_tpu_torch.align.cpu import CppAligner
+from thermite_tpu_torch.align.run import FORMAT_SAM, align_reads_from_file
+from thermite_tpu_torch.cli import _parser
 from thermite_tpu_torch.cli import main as port_main
 from thermite_tpu_torch.io.bam import encode_bam_record
 from thermite_tpu_torch.io.sam import unique_refs
@@ -216,5 +229,209 @@ def test_cli_cpp_engine_equals_reference(synth):
     (["--profile", "p"], "item 9"),
 ])
 def test_flags_not_ported_raise(tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        port_main(["align", str(tmp_path / "i.npz"), "r.fq", *flag])
+    """The three flags that raised NotImplementedError (each naming its
+    ROADMAP item) are ported: the CLI takes them and goes on to load the
+    index, which is not there."""
+    with pytest.raises(FileNotFoundError):
+        port_main(["align", str(tmp_path / "i.npz"), "r.fq", *flag,
+                   "--device", "cpu"])
+    assert not os.path.exists("p")
+
+
+# -- the CLI surface of the reference ----------------------------------
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["align", "i", "r"], False),
+    (["-v", "align", "i", "r"], True),
+    (["align", "i", "r", "-v"], True),
+    (["-v", "align", "i", "r", "--verbose"], True),
+    (["index", "f", "g", "-o", "x", "-v"], True),
+    (["-v", "index", "f", "g", "-o", "x"], True),
+    (["merge", "-o", "x", "s0", "-v"], True),
+    (["merge", "-o", "x", "s0"], False),
+])
+def test_verbose_before_or_after_the_subcommand(argv, want):
+    assert _parser().parse_args(argv).verbose is want
+
+
+def test_index_takes_the_reference_invocations(tmp_path):
+    """``--sa-sampling-rate`` and ``--occ-sampling-rate`` are accepted
+    and change nothing; without ``-o`` the port exits with the
+    reference's words."""
+    ref, gtf, _ = write_fixture(tmp_path)
+    plain_out, flagged, ref_out = (str(tmp_path / n) for n in
+                                   ("a.tai.npz", "b.tai.npz", "c.tai.npz"))
+    assert port_main(["index", ref, gtf, "-o", plain_out]) == 0
+    assert port_main(["index", ref, gtf, "--sa-sampling-rate", "16",
+                      "--occ-sampling-rate", "64", "-o", flagged]) == 0
+    assert ref_main(["index", ref, gtf, "--sa-sampling-rate", "16",
+                     "--occ-sampling-rate", "64", "-o", ref_out]) == 0
+    with np.load(plain_out) as a, np.load(flagged) as b, np.load(ref_out) as c:
+        assert sorted(a.files) == sorted(b.files) == sorted(c.files)
+        for k in a.files:
+            assert a[k].tobytes() == b[k].tobytes() == c[k].tobytes(), k
+    args = _parser().parse_args(["index", ref, gtf])
+    assert (args.index, args.sa_sampling_rate, args.occ_sampling_rate) == \
+        ("-", 32, 128)
+    for main in (port_main, ref_main):
+        with pytest.raises(SystemExit) as e:
+            main(["index", ref, gtf])
+        assert str(e.value) == \
+            "index output to stdout not supported; pass -o FILE"
+
+
+def _emit(synth, monkeypatch, **env):
+    """(SAM bytes of the 300 reads, the aligner) with ``env`` set."""
+    _, _, _, index, recs, opts = synth
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    a = BatchAligner(index.port, opts.port, device="cpu")
+    return a.align_batch_emit(recs, False), a
+
+
+def test_problem_budget_is_read(synth, monkeypatch):
+    _, _, _, index, _, opts = synth
+    want, default = _emit(synth, monkeypatch)
+    assert default.PROBLEM_BUDGET == BatchAligner.PROBLEM_BUDGET == 65536 - 2048
+    got, small = _emit(synth, monkeypatch, THERMITE_PROBLEM_BUDGET="128")
+    assert small.PROBLEM_BUDGET == 128
+    assert small.stats.chunks > default.stats.chunks == 1
+    assert got == want
+    # the reference reads the same knob into the same attribute
+    assert RefBatchAligner(index.ref, opts.ref).PROBLEM_BUDGET == 128
+    assert BatchAligner.PROBLEM_BUDGET == 65536 - 2048  # per aligner
+
+
+def test_pipeline_depth_is_read(synth, monkeypatch):
+    _, _, _, index, _, opts = synth
+    monkeypatch.setenv("THERMITE_PROBLEM_BUDGET", "128")  # several chunks
+    want, default = _emit(synth, monkeypatch)
+    assert default.pipeline_depth == BatchAligner.PIPELINE_DEPTH == 2
+    got, serial = _emit(synth, monkeypatch, THERMITE_PIPELINE_DEPTH="1")
+    assert serial.pipeline_depth == 1 and serial.stats.chunks > 2
+    assert got == want
+    assert _emit(synth, monkeypatch, THERMITE_PIPELINE_DEPTH="3")[0] == want
+    assert RefBatchAligner(index.ref, opts.ref).pipeline_depth == 3
+
+
+def _paired_queries(synth, n=30, seed=13):
+    d, _, _, index, *_ = synth
+    pairs = make_mixed_pairs(index.ref, n=n, seed=seed)
+    queries = [str(d / f"q{seed}_1.fq"), str(d / f"q{seed}_2.fq")]
+    for path, k in zip(queries, (0, 1)):
+        write_fastq([(p[k].id.decode(), p[k].seq) for p in pairs], path)
+    return [*queries, "--paired"]
+
+
+@pytest.mark.parametrize("ext,paired", [
+    (".sam", False), (".bam", False), (".paf", False), (".sam", True),
+    (".bam", True)])
+def test_no_emit_gives_the_same_bytes(synth, monkeypatch, ext, paired):
+    """``THERMITE_NO_EMIT`` routes a batch run through ``align_batch`` and
+    the Python writers: the emit methods are not called, the bytes are
+    the emitter's."""
+    d, idx, fq, *_ = synth
+    queries = _paired_queries(synth) if paired else [fq]
+    flags = ["-k", "20", "-s", "0", "--intron-mode", "--device", "cpu"]
+    if ext != ".paf":
+        flags.append("-a")
+    tag = ext[1:] + ("_paired" if paired else "")
+    emit, objs = str(d / f"emit_{tag}{ext}"), str(d / f"noemit_{tag}{ext}")
+    assert port_main(["align", idx, *queries, "-o", emit, *flags]) == 0
+    monkeypatch.setenv("THERMITE_NO_EMIT", "1")
+
+    def no_emit(*a, **k):
+        raise AssertionError("the C++ emit path ran under THERMITE_NO_EMIT")
+
+    monkeypatch.setattr(BatchAligner, "align_batch_emit", no_emit)
+    monkeypatch.setattr(BatchAligner, "align_paired_emit", no_emit)
+    assert port_main(["align", idx, *queries, "-o", objs, *flags]) == 0
+    got = _read(objs, ext == ".bam")
+    assert got == _read(emit, ext == ".bam") and len(got) > 0
+
+
+def test_can_emit_follows_the_engine(synth):
+    _, _, _, index, _, opts = synth
+    assert BatchAligner(index.port, opts.port, device="cpu").can_emit()
+    assert not BatchAligner(index.port, opts.port, device="cpu",
+                            use_native=False).can_emit()
+
+
+def test_file_entry_defaults_follow_the_reference(synth):
+    """``engine`` defaults to the oracle as in the reference (no device is
+    touched); ``device`` stays ``cuda``: the batch engine runs on the card
+    unless asked for the CPU."""
+    d, _, fq, index, _, opts = synth
+    port_sig = inspect.signature(align_reads_from_file).parameters
+    ref_sig = inspect.signature(ref_align_file).parameters
+    assert port_sig["engine"].default == ref_sig["engine"].default == "oracle"
+    assert port_sig["device"].default == "cuda"
+    for name in ("profile_dir", "shard", "mesh"):
+        assert port_sig[name].default is ref_sig[name].default is None
+    got, want = str(d / "default_engine.sam"), str(d / "ref_default.sam")
+    align_reads_from_file(index.port, [fq], got, FORMAT_SAM, opts.port)
+    ref_align_file(index.ref, [fq], want, FORMAT_SAM, opts.ref)
+    assert _read(got, False) == _read(want, False)
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["single", "paired"])
+def test_profile_writes_a_trace_and_keeps_the_bytes(synth, paired):
+    d, idx, fq, *_ = synth
+    queries = _paired_queries(synth, n=12, seed=5) if paired else [fq]
+    flags = ["-a", "-k", "20", "-s", "0", "--intron-mode", "--device", "cpu"]
+    tag = "paired" if paired else "single"
+    plain_out, prof_out = str(d / f"np_{tag}.sam"), str(d / f"p_{tag}.sam")
+    trace_dir = str(d / f"trace_{tag}")
+    assert port_main(["align", idx, *queries, "-o", plain_out, *flags]) == 0
+    assert port_main(["align", idx, *queries, "-o", prof_out, *flags,
+                      "--profile", trace_dir]) == 0
+    assert _read(prof_out, False) == _read(plain_out, False)
+    traces = glob.glob(os.path.join(trace_dir, "*.trace.json"))
+    assert len(traces) == 1
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+
+
+def test_coordinator_is_accepted_and_not_used(synth, capsys):
+    """Two hosts with ``--coordinator``: one line on stderr each, the
+    shards of a run without it, and ``merge`` gives the single run."""
+    d, idx, fq, *_ = synth
+    flags = ["-a", "-k", "20", "-s", "0", "--intron-mode", "--device", "cpu"]
+    single, out = str(d / "coord_single.sam"), str(d / "coord.sam")
+    assert port_main(["align", idx, fq, "-o", single, *flags]) == 0
+    capsys.readouterr()
+    for h in ("0", "1"):
+        assert port_main(["align", idx, fq, "-o", out, *flags, "--num-hosts",
+                          "2", "--host-id", h, "--coordinator",
+                          "localhost:1234"]) == 0
+    err = capsys.readouterr().err
+    assert err.count("need no coordinator") == 2 and "localhost:1234" in err
+    merged = str(d / "coord_merged.sam")
+    assert port_main(["merge", "-o", merged, out + ".shard000",
+                      out + ".shard001"]) == 0
+    assert _read(merged, False) == _read(single, False)
+
+
+@pytest.mark.parametrize("mesh,paired", [("2", False), ("-1", False),
+                                         ("3", True)])
+def test_cli_mesh_gives_one_device_bytes(synth, mesh, paired):
+    d, idx, fq, *_ = synth
+    queries = _paired_queries(synth) if paired else [fq]
+    flags = ["-a", "-k", "20", "-s", "0", "--intron-mode", "--device", "cpu"]
+    tag = f"{mesh}_{paired}"
+    one, meshed = str(d / f"one_{tag}.bam"), str(d / f"mesh_{tag}.bam")
+    assert port_main(["align", idx, *queries, "-o", one, *flags]) == 0
+    assert port_main(["align", idx, *queries, "-o", meshed, *flags,
+                      "--mesh", mesh]) == 0
+    got = _read(meshed, True)
+    assert got == _read(one, True) and len(got) > 0
+
+
+def test_cli_mesh_on_absent_cards_raises(synth):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _, idx, fq, *_ = synth
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_main(["align", idx, fq, "-a", "--mesh", "2"])

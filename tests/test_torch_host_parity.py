@@ -8,9 +8,13 @@ the results are compared as plain tuples, arrays and bytes.  Tolerance
 packages: a ``.tai.npz`` saved by either loads in the other with equal
 arrays, and shards written by either merge with either ``merge``."""
 
+import contextlib
 import gzip
 import importlib
+import io
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -277,15 +281,84 @@ def case_shard_bounds(pkg, d):
             for h in (1, 2, 3, 8) for i in range(h)]
 
 
+def _truth_bams(pkg, d):
+    """The BAMs of tests/test_truth_metrics.py (a 40 kbp genome, 80 truth
+    reads with up to 2 substitutions), written by the package's own file
+    runner: the cpp engine's, and the oracle's on reads half of which
+    lost their tail (so the two files differ)."""
+    synth = _mod(pkg, "testing.synth")
+    os.makedirs(os.path.join(d, pkg), exist_ok=True)
+    fasta, gtf = synth.write_synth_genome(os.path.join(d, pkg), 40_000,
+                                          seed=5, basename="tg")
+    index = _mod(pkg, "index.build").Index.create_from_files(fasta, gtf)
+    reads = synth.make_truth_reads(index, 80, seed=9, max_subst=2)
+    run = _mod(pkg, "align.run")
+    bams = []
+    for name, engine, cut in (("a.bam", "cpp", 0), ("b.bam", "oracle", 30)):
+        fq = os.path.join(d, pkg, name + ".fq")
+        synth.write_fastq([(n, s[: len(s) - cut * (i % 2)])
+                           for i, (n, s) in enumerate(reads)], fq)
+        bams.append(os.path.join(d, pkg, name))
+        run.align_reads_from_file(index, [fq], bams[-1], run.FORMAT_BAM,
+                                  _opts(pkg), engine=engine)
+    return bams
+
+
+def case_alignment_metrics(pkg, d):
+    """testing/alignment_metrics.py on the cases of
+    tests/test_truth_metrics.py: the truth score of a BAM and its table,
+    two BAMs compared read by read and their table, ``main`` in both
+    modes, and the refusal of a name that encodes no truth."""
+    am = _mod(pkg, "testing.alignment_metrics")
+    a, b = _truth_bams(pkg, d)
+    truth = am.truth_compare(a)
+    assert truth.n_reads == truth.n_aligned == truth.n_true_overlap == 80
+    assert truth.n_true_identical >= 60
+    assert "|aligned reads | 1.0|" in am.truth_to_markdown(truth)
+    cmp_ab, cmp_aa = am.compare(a, b), am.compare(a, a)
+    assert cmp_aa.n_identical_align == cmp_aa.n_reads == 80
+    assert cmp_ab.n_identical_align < 80 <= cmp_ab.n_overlapping_align + 5
+    printed = []
+    for argv in (["--truth", a], [a, b]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert am.main(argv) == 0
+        printed.append(out.getvalue().replace(os.path.join(d, pkg), ""))
+    with pytest.raises(SystemExit):
+        am._parse_truth("synth0")
+    with pytest.raises(SystemExit):
+        am.main([a])  # in2 is required without --truth
+    return (plain(truth), am.truth_to_markdown(truth), plain(cmp_ab),
+            am.to_markdown(cmp_ab), plain(cmp_aa), printed,
+            plain(am.truth_compare(b)), am._parse_truth("r:chr1:5:95:-"))
+
+
 CASES = {f.__name__[5:]: f for f in (
     case_synth, case_index_arrays, case_fixture_io, case_pair_records,
-    case_swg_extend, case_decode, case_engine_chunk, case_shard_bounds)}
+    case_swg_extend, case_decode, case_engine_chunk, case_shard_bounds,
+    case_alignment_metrics)}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_host_module_parity(case, tmp_path):
     ref, port = (CASES[case](pkg, str(tmp_path)) for pkg in PKGS)
     assert plain(port) == plain(ref)
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_alignment_metrics_runs_as_a_module(pkg, tmp_path):
+    """``python -m <package>.testing.alignment_metrics --truth BAM``, as
+    tests/test_truth_metrics.py::test_truth_cli runs the reference's."""
+    bam, _ = _truth_bams(pkg, str(tmp_path))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run(
+        [sys.executable, "-m", f"{pkg}.testing.alignment_metrics", "--truth",
+         bam], capture_output=True, text=True, check=True, env=env,
+    ).stdout
+    assert "|aligned reads | 1.0|" in out
+    assert "|primary overlaps truth | 1.0|" in out
 
 
 # -- artifacts cross the packages --------------------------------------

@@ -6,8 +6,9 @@ A static check reads every source of ``thermite_tpu_torch/`` and
 ``sys.modules``).  A dynamic check runs the port in a subprocess with
 ``sys.modules["thermite_tpu"] = None`` and ``sys.modules["jax"] = None``
 (an import of either raises ImportError): ``index``, ``align`` with the
-batch engine on ``--device cpu``, the cpp and oracle engines,
-``--paired``, two shards and ``merge``, and the embedding wrapper.  Its
+batch engine on ``--device cpu`` (also under ``--mesh 2 --profile``),
+the cpp and oracle engines, ``--paired``, two shards and ``merge``, the
+embedding wrapper, the mesh dry run and the metrics module.  Its
 files must equal, byte for byte, those the reference CLI and wrapper
 write in another subprocess; the C++ engine's library must come from the
 port's own ``_build/`` directory."""
@@ -68,7 +69,9 @@ def test_port_sources_are_found():
     for must in ("cli.py", "wrapper.py", "constants.py", "align/batch.py",
                  "align/driver.py", "align/native_batch.py", "index/build.py",
                  "io/bam.py", "seed/native.py", "ops/swg_ref.py",
-                 "parallel/multihost.py", "testing/synth.py"):
+                 "parallel/multihost.py", "testing/synth.py",
+                 "parallel/mesh.py", "parallel/dryrun.py",
+                 "testing/alignment_metrics.py", "utils/profile.py"):
         assert must in rel, must
     for src in ("thermite_native.cpp", "thermite_objbuild.c"):
         assert os.path.exists(os.path.join(PORT, "csrc", "host", src))
@@ -133,6 +136,15 @@ with open(o("wrapper.bin"), "wb") as f:
         for rec in w.align_read_pair(a.id, a.seq, a.qual, b.seq, b.qual):
             f.write(rec.to_line().encode() + b"\n")
 if port:
+    # the mesh, the profiler and the metrics module need neither name
+    assert main(["align", idx, fq, "-o", o("mesh.sam"), *flags, *dev,
+                 "--mesh", "2", "--profile", o("trace"), "-v"]) == 0
+    with open(o("mesh.sam"), "rb") as a, open(o("batch.sam"), "rb") as b:
+        assert a.read() == b.read()
+    assert len(os.listdir(o("trace"))) == 1
+    importlib.import_module(pkg + ".parallel.dryrun").dryrun_multichip(2)
+    metrics = importlib.import_module(pkg + ".testing.alignment_metrics")
+    assert metrics.compare(o("batch.bam"), o("batch.bam")).n_reads == 160
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("thermite_tpu", "jax", "jaxlib")
                     and sys.modules[m] is not None)

@@ -28,6 +28,13 @@ arbitrate/finalize) two deep: while the card runs chunk k the host
 builds chunk k+1 and finalizes chunk k-1.  Device results cross to the
 host by non-blocking copies into pinned memory, each followed by a CUDA
 event that the host waits on where it needs the values.
+
+With ``mesh=`` (``parallel/mesh.py``) the text and each chunk's read
+block are replicated on every device of the mesh, each launch's rows are
+split round-robin over them after they were ordered and padded as one
+launch, every device keeps its op streams resident and gathers its own
+winners, and the host merges headers and winners' streams in input order:
+every later stage sees the arrays of a single-device run.
 """
 
 from __future__ import annotations
@@ -60,6 +67,14 @@ from ..ops.runs import decode_stream_batch
 from ..ops.swg_forward import swg_forward
 from ..ops.swg_ref import SwgExtend
 from ..ops.swg_stream import PACKED_BAND_MAX, swg_stream
+from ..parallel.mesh import (
+    check_mesh,
+    merge_rows,
+    replicate,
+    scatter_rows,
+    sharded_forward,
+    sharded_stream,
+)
 from ..seed.kmer import MAX_ANCHOR_K
 from ..seed.native import make_seeder
 from ..utils.stats import PipelineStats
@@ -97,11 +112,14 @@ class _HostCopy:
 
     def __init__(self, t: torch.Tensor):
         self._event = None
-        if t.device.type == "cuda":
+        if t.device.type == "cuda" and t.numel() == 0:
+            self._host = torch.empty(t.shape, dtype=t.dtype)
+        elif t.device.type == "cuda":
             self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             self._host.copy_(t, non_blocking=True)
             self._event = torch.cuda.Event()
-            self._event.record()
+            # on the tensor's device, which need not be the current one
+            self._event.record(torch.cuda.current_stream(t.device))
         else:
             self._host = t
 
@@ -109,6 +127,20 @@ class _HostCopy:
         if self._event is not None:
             self._event.synchronize()
         return self._host.numpy()
+
+
+class _MeshCopy:
+    """The row blocks of a mesh's devices on their way to the host: one
+    ``_HostCopy`` per device, waited in mesh order; ``wait()`` returns the
+    ``n_rows`` rows merged in input order (``merge_rows``)."""
+
+    def __init__(self, parts, n_rows: int, index=None):
+        self._copies = [_HostCopy(p) for p in parts]
+        self._n_rows, self._index = n_rows, index
+
+    def wait(self) -> np.ndarray:
+        return merge_rows([c.wait() for c in self._copies], self._n_rows,
+                          self._index)
 
 
 class _Problems:
@@ -159,9 +191,11 @@ class _ChunkState:
     tasks_arr: Optional[np.ndarray] = None  # (T, 10) int64
     reads_host: Optional[np.ndarray] = None  # padded read block (rows, RPAD)
     reads_dev: Optional[torch.Tensor] = None  # nibble-packed read block
+    reads_mesh: Optional[list] = None  # its replicas, one per mesh entry
     fwd_idx: Optional[np.ndarray] = None  # pids sent to the kernel, by row
     hdr: Optional[_HostCopy] = None  # packed headers in flight
-    fwd_streams: Optional[torch.Tensor] = None  # device op streams (Nb, PW)
+    # device op streams (Nb, PW); under a mesh each device's (Nb / n, PW)
+    fwd_streams: object = None
     inv_rows: Optional[np.ndarray] = None  # pid -> device row (-1 none)
     patched: Optional[np.ndarray] = None  # pids recomputed at full band
     tb_full: Optional[np.ndarray] = None  # pid-indexed stream rows
@@ -251,12 +285,20 @@ def host_engine(index: Index, opts: AlignOpts, use_native: bool = True
 class BatchAligner:
     # Chunks are cut by problem count, just under a power-of-two bucket
     # of kernel rows (65536), so row padding stays a few percent.
+    # THERMITE_PROBLEM_BUDGET overrides it per aligner.
     PROBLEM_BUDGET = 65536 - 2048
     PIPELINE_DEPTH = 2
 
     def __init__(self, index: Index, opts: AlignOpts, device="cuda",
-                 use_native: bool = True):
-        self.device = _device.resolve(device)
+                 use_native: bool = True, mesh=None):
+        # mesh: a tuple of torch devices (parallel.mesh.make_mesh); it
+        # then names the devices, and ``device`` is not read.  The same
+        # device may stand in it more than once.  None: one device, one
+        # launch a chunk.
+        self.mesh = None if mesh is None else check_mesh(mesh)
+        self.device = self.mesh[0] if self.mesh else _device.resolve(device)
+        # launch rows pad to a multiple of the mesh size
+        self._nsh = len(self.mesh) if self.mesh else 1
         self.index = index
         self.opts = opts
         # problems are submitted at band min(band, narrow_band); the
@@ -265,6 +307,15 @@ class BatchAligner:
         # submits the original bands (no narrowing); narrowing needs the
         # C++ engine.
         self.narrow_band = int(os.environ.get("THERMITE_NARROW_BAND", "15"))
+        # chunks in flight between build and finalize: 2 overlaps the
+        # card with the host stages, 1 runs them in turn.  The reference
+        # also picks 1 by itself from a chunk's build time, for a one-core
+        # host whose device runtime polls on that core; not taken here.
+        _pd = os.environ.get("THERMITE_PIPELINE_DEPTH", "")
+        self.pipeline_depth = int(_pd) if _pd else self.PIPELINE_DEPTH
+        _pb = os.environ.get("THERMITE_PROBLEM_BUDGET", "")
+        if _pb:
+            self.PROBLEM_BUDGET = int(_pb)
         self.stats = PipelineStats()
         # sticky shape maxima (raised per batch, never lowered)
         self._RPAD = self._XMAX = self._YMAX = self._W = 0
@@ -278,27 +329,55 @@ class BatchAligner:
         self.seeder, self.tx_off = eng.seeder, eng.tx_off
         self._ref_text_host, self.native = eng.ref_text, eng.native
         self._ref_text_dev = None  # device copy, uploaded on first use
+        self._ref_text_mesh = None  # one per mesh entry
 
     def _narrowing(self) -> bool:
         return self.native is not None and self.narrow_band > 0
 
+    def can_emit(self) -> bool:
+        """Whether the ``*_emit`` methods serialize in C++ (they need the
+        engine; without it callers take ``align_batch`` and the Python
+        writers)."""
+        return self.native is not None
+
     # ------------------------------------------------------------------
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor (through pinned memory, async)."""
-        t = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
-        if self.device.type == "cuda":
-            t = t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        return _device.upload(arr, self.device)
 
     def _ref_text(self) -> torch.Tensor:
-        """Device-resident nibble-packed reference text (Lw,) int32."""
+        """Device-resident nibble-packed reference text (Lw,) int32 (on
+        the first device of a mesh)."""
         if self._ref_text_dev is None:
             lw = nib_lw(len(self._ref_text_host))
             nib = getattr(self.index, "text_nib_arr", None)
             if nib is None or len(nib) != lw:
                 nib = pack_text_nib_host(self._ref_text_host)
-            self._ref_text_dev = self._upload(nib)
+            if self.mesh:
+                self._ref_text_mesh = replicate(self.mesh, nib)
+                self._ref_text_dev = self._ref_text_mesh[0]
+            else:
+                self._ref_text_dev = self._upload(nib)
         return self._ref_text_dev
+
+    def _ref_texts(self) -> list:
+        """The text's replicas, one per mesh entry."""
+        self._ref_text()
+        return self._ref_text_mesh
+
+    def _upload_reads(self, st: "_ChunkState", nib: np.ndarray) -> None:
+        """The chunk's nibble-packed read block onto the device, or onto
+        every device of the mesh."""
+        if self.mesh:
+            st.reads_mesh = replicate(self.mesh, nib)
+            st.reads_dev = st.reads_mesh[0]
+        else:
+            st.reads_dev = self._upload(nib)
+
+    def _rows_bucket(self, n: int, sticky: int) -> int:
+        """Row count of a launch of ``n`` problems: a power of two from
+        128, never below the sticky count, a multiple of the mesh size."""
+        return _round_up(max(_pow2_bucket(max(n, 1), 128), sticky), self._nsh)
 
     def _reads_bucket(self, n: int) -> int:
         """Sticky power-of-two row count of the uploaded read block."""
@@ -444,7 +523,7 @@ class BatchAligner:
                          self._SMAX)
         self._SMAX_HOST = max(_round_up(maxlen + (maxlen + band + 1) + 2, 16),
                               self._SMAX, self._SMAX_HOST)
-        nb = _pow2_bucket(self.PROBLEM_BUDGET + 1024, 128)
+        nb = self._rows_bucket(self.PROBLEM_BUDGET + 1024, 0)
         self._NFWD1, self._NFWD, self._NTB = (
             max(nb, v) for v in (self._NFWD1, self._NFWD, self._NTB))
         self._NREADS = max(
@@ -476,7 +555,7 @@ class BatchAligner:
         self._RPAD = max(_round_up(max(map(len, reads), default=1), 32),
                          self._RPAD)
         self._pin_shapes(reads)
-        depth = self.PIPELINE_DEPTH
+        depth = self.pipeline_depth
         while i < len(reads) or not built:
             with self.stats.stage("build"):
                 starts.append(i)
@@ -543,7 +622,7 @@ class BatchAligner:
         else:
             upload = np.zeros((rows, RPAD), np.uint8)
             upload[: len(reads_pad)] = reads_pad
-        st.reads_dev = self._upload(self.native.nib_pack_reads(upload))
+        self._upload_reads(st, self.native.nib_pack_reads(upload))
         return st, start + consumed
 
     def _build_chunk_py(self, all_reads: List[bytes], start: int,
@@ -617,7 +696,7 @@ class BatchAligner:
         for ri, r in enumerate(reads):
             reads_pad[ri, : len(r)] = np.frombuffer(r, np.uint8)
         st.reads_host = reads_pad
-        st.reads_dev = self._upload(pack_reads_nib_host(reads_pad.reshape(-1)))
+        self._upload_reads(st, pack_reads_nib_host(reads_pad.reshape(-1)))
         st.meta_all = problems.meta()
         return st, pos
 
@@ -709,19 +788,26 @@ class BatchAligner:
         sub = meta_dev[st.fwd_idx]
         bmax = int(sub[:, 7].max(initial=1))
         words = self._ref_text()
+        # shapes, band bound and padding are those of the whole launch;
+        # under a mesh every device runs its part at the same shape
         if self.native is None:
-            nb = max(_pow2_bucket(max(len(sub), 1), 128), self._NFWD)
-            self._NFWD = nb
+            nb = self._NFWD = self._rows_bucket(len(sub), self._NFWD)
             meta = self._pad_meta(sub, nb)
             self.stats.dp_cells += len(meta) * YMAX * W
+            packed = self._pack_meta(meta)
+            if self.mesh:
+                st.fwd = _MeshCopy(sharded_forward(
+                    self.mesh, self._ref_texts(), st.reads_mesh,
+                    scatter_rows(self.mesh, packed), XMAX, YMAX,
+                    band_max=bmax), nb)
+                return
             st.fwd = _HostCopy(swg_forward(
-                words, words.shape[0], st.reads_dev,
-                self._upload(self._pack_meta(meta)), XMAX, YMAX, band_max=bmax,
+                words, words.shape[0], st.reads_dev, self._upload(packed),
+                XMAX, YMAX, band_max=bmax,
             ))
             return
         seg = self._packed_seg(bmax)
-        nb = max(_pow2_bucket(max(len(sub), 1), 128), self._NFWD1)
-        self._NFWD1 = nb
+        nb = self._NFWD1 = self._rows_bucket(len(sub), self._NFWD1)
         meta = self._pad_meta(sub, nb)
         self.stats.dp_cells += len(meta) * YMAX * (seg or W)
         orig = meta_all[st.fwd_idx]
@@ -739,12 +825,20 @@ class BatchAligner:
             _round_up(int((orig[:, 6] + orig[:, 3]).max(initial=1)) + 2, 16),
             self._SMAX, self._SMAX_HOST,
         )
-        hdr, st.fwd_streams = swg_stream(
-            words, words.shape[0], st.reads_dev,
-            self._upload(self._pack_meta(meta)), XMAX, YMAX, self._SMAX,
-            band_max=bmax,
-        )
-        st.hdr = _HostCopy(hdr)
+        packed = self._pack_meta(meta)
+        if self.mesh:
+            outs = sharded_stream(
+                self.mesh, self._ref_texts(), st.reads_mesh,
+                scatter_rows(self.mesh, packed), XMAX, YMAX, self._SMAX,
+                band_max=bmax)
+            st.hdr = _MeshCopy([hdr for hdr, _ in outs], nb)
+            st.fwd_streams = [streams for _, streams in outs]
+        else:
+            hdr, st.fwd_streams = swg_stream(
+                words, words.shape[0], st.reads_dev, self._upload(packed),
+                XMAX, YMAX, self._SMAX, band_max=bmax,
+            )
+            st.hdr = _HostCopy(hdr)
         inv = np.full(len(meta_all), -1, np.int32)
         inv[st.fwd_idx] = np.arange(len(st.fwd_idx), dtype=np.int32)
         st.inv_rows = inv
@@ -767,7 +861,8 @@ class BatchAligner:
         with self.stats.dsync("arbitrate"):
             sub = st.hdr.wait()[: len(st.fwd_idx)]
         st.hdr = None
-        pw_host = max(self._SMAX_HOST // 16, int(st.fwd_streams.shape[1]))
+        streams = st.fwd_streams[0] if self.mesh else st.fwd_streams
+        pw_host = max(self._SMAX_HOST // 16, int(streams.shape[1]))
         full = np.zeros((n, 4 + pw_host), np.int32)
         full[st.fwd_idx, :4] = expand_stream_hdr(sub)
         bad = np.flatnonzero(full[:, 3] < 0)
@@ -895,8 +990,7 @@ class BatchAligner:
         sub = meta_sub[st.tb_idx]
         bmax = int(sub[:, 7].max(initial=1))
         seg = self._packed_seg(bmax)
-        nb = max(_pow2_bucket(max(len(sub), 1), 128), self._NTB)
-        self._NTB = nb
+        nb = self._NTB = self._rows_bucket(len(sub), self._NTB)
         meta = self._pad_meta(sub, nb)
         self.stats.dp_cells += len(meta) * YMAX * (seg or W)
         # walk steps of the batch, sticky
@@ -905,11 +999,17 @@ class BatchAligner:
                       128),
             self._SMAX,
         )
+        packed = self._pack_meta(meta)
+        if self.mesh:
+            st.tb = _MeshCopy(sharded_stream(
+                self.mesh, self._ref_texts(), st.reads_mesh,
+                scatter_rows(self.mesh, packed), XMAX, YMAX, self._SMAX,
+                band_max=bmax, fused=True), nb)
+            return
         words = self._ref_text()
         st.tb = _HostCopy(swg_stream(
-            words, words.shape[0], st.reads_dev,
-            self._upload(self._pack_meta(meta)), XMAX, YMAX, self._SMAX,
-            band_max=bmax, fused=True,
+            words, words.shape[0], st.reads_dev, self._upload(packed),
+            XMAX, YMAX, self._SMAX, band_max=bmax, fused=True,
         ))
 
     def _traceback_results(self, st: _ChunkState) -> Dict[int, Alignment]:
@@ -951,8 +1051,17 @@ class BatchAligner:
         if not keep.any():
             return
         st.gather_pids = pids[keep]
-        idx = self._upload(rows[keep].astype(np.int64))
-        st.gather = _HostCopy(streams.index_select(0, idx))
+        rows = rows[keep].astype(np.int64)
+        if self.mesh:
+            # row r lives on device r % n at local row r // n
+            n = self._nsh
+            at = [np.flatnonzero(rows % n == d) for d in range(n)]
+            st.gather = _MeshCopy(
+                [streams[d].index_select(
+                    0, _device.upload(rows[at[d]] // n, dev))
+                 for d, dev in enumerate(self.mesh)], len(rows), at)
+            return
+        st.gather = _HostCopy(streams.index_select(0, self._upload(rows)))
 
     def _take_tb(self, st: _ChunkState) -> np.ndarray:
         """The pid-indexed stream rows for finalize, with the winners'

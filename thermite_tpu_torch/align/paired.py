@@ -46,7 +46,7 @@ from ..io.sam import (
     unique_refs,
     unmapped_sam_record,
 )
-from .run import FORMAT_BAM, FORMAT_SAM, _count_records
+from .run import FORMAT_BAM, FORMAT_SAM, _count_records, emit_in_cpp, profile_to
 
 FLAG_PAIRED = 0x1
 FLAG_PROPER = 0x2
@@ -384,20 +384,36 @@ def align_paired_from_files(
     shard=None,
     mate_rescue: bool = True,
     device: str = "cuda",
+    mesh=None,
+    profile_dir=None,
 ) -> None:
     """Paired-end file entry point: SAM/BAM out (PAF has no mate fields).
 
     ``engine``: ``batch`` runs the port's ``BatchAligner.align_paired_emit``
-    on ``device``; ``cpp`` the all-C++ engine (``align/cpu.py``);
-    ``oracle`` the sequential aligner (``align/driver.py``).  Pairs are flushed
+    on ``device`` (or on the devices of ``mesh``), or, when
+    ``THERMITE_NO_EMIT`` is set or the aligner has no C++ engine,
+    ``align_batch`` on the interleaved mates with ``pair_records`` and the
+    Python writers (the same bytes); ``cpp`` the all-C++ engine
+    (``align/cpu.py``); ``oracle`` the sequential aligner
+    (``align/driver.py``).  Pairs are flushed
     ``batch_size // 2`` at a time (both mates count against the batch).
     ``shard=(host_id, num_hosts)`` aligns only this host's contiguous
-    block of pairs, so ``merge`` restores the input order."""
+    block of pairs, so ``merge`` restores the input order.
+    ``profile_dir`` traces the run (``run.profile_to``)."""
     if output_fmt not in (FORMAT_SAM, FORMAT_BAM):
         raise ValueError("paired mode writes SAM/BAM only")
     if engine not in ("batch", "cpp", "oracle"):
         raise ValueError(f"engine {engine!r} does not support paired mode "
                          "(oracle, batch and cpp do)")
+    with profile_to(profile_dir, engine, device, mesh):
+        _align_pairs(index, path1, path2, output_path, output_fmt, opts,
+                     engine, batch_size, max_insert, verbose, shard,
+                     mate_rescue, device, mesh)
+
+
+def _align_pairs(index, path1, path2, output_path, output_fmt, opts, engine,
+                 batch_size, max_insert, verbose, shard, mate_rescue, device,
+                 mesh) -> None:
     lo, hi = 0, None
     if shard is not None:
         from ..parallel.multihost import shard_bounds
@@ -439,8 +455,9 @@ def align_paired_from_files(
             if engine == "batch":
                 from .batch import BatchAligner
 
-                aligner = BatchAligner(index, opts, device=device)
-                run = aligner.align_paired_emit
+                aligner = BatchAligner(index, opts, device=device, mesh=mesh)
+                run = aligner.align_paired_emit if emit_in_cpp(aligner) \
+                    else None
             else:
                 from .cpu import CppAligner
 
@@ -448,8 +465,19 @@ def align_paired_from_files(
                 run = aligner.align_records_paired
             stats = aligner.stats
             for buf in batches():
-                writer.write_raw(run(buf, binary, max_insert=max_insert,
-                                     mate_rescue=mate_rescue))
+                if run is not None:
+                    writer.write_raw(run(buf, binary, max_insert=max_insert,
+                                         mate_rescue=mate_rescue))
+                    continue
+                # objects: both mates ride one interleaved batch, R1 at
+                # even slots, R2 at odd
+                res = aligner.align_batch([m[1] for pair in buf for m in pair])
+                for k, (r1, r2) in enumerate(buf):
+                    for rec in pair_records(
+                        index, _Rec(*r1), _Rec(*r2), res[2 * k],
+                        res[2 * k + 1], max_insert, rescue_opts=rescue_opts,
+                    ):
+                        writer.write(rec)
         writer.finish()
         if verbose and stats is not None:
             print(stats.report(), file=sys.stderr)

@@ -1,16 +1,21 @@
 """File-level alignment entry point of the port: FASTQ(s) in, PAF/SAM/BAM
 out.
 
-``engine="batch"`` runs the port's ``BatchAligner`` on ``device``
-(records emitted by the C++ engine); ``engine="cpp"`` the all-C++ engine
-(``align/cpu.py``, SAM/BAM only); ``engine="oracle"`` the sequential
-oracle (``align/driver.py``).  Neither of the last two needs a device.
+``engine="batch"`` runs the port's ``BatchAligner`` on ``device`` (or on
+the devices of ``mesh``); its records are emitted by the C++ engine, or,
+when ``THERMITE_NO_EMIT`` is set or the aligner has no C++ engine, built
+as objects by ``align_batch`` and written by the Python writers: the same
+bytes.  ``engine="cpp"`` is the all-C++ engine (``align/cpu.py``, SAM/BAM
+only); ``engine="oracle"`` the sequential oracle (``align/driver.py``),
+the default as in the reference.  Neither of the last two needs a device.
 """
 
 from __future__ import annotations
 
+import os
 import sys
-from typing import Iterable
+from contextlib import nullcontext
+from typing import Iterable, Optional
 
 from ..index.build import Index
 from ..io.bam import BamWriter
@@ -53,6 +58,27 @@ def _count_records(query_paths) -> int:
     return total
 
 
+def emit_in_cpp(aligner) -> bool:
+    """Whether a batch run's records come from the C++ emitter: the
+    aligner has the engine and ``THERMITE_NO_EMIT`` is not set.  Else
+    they are built as objects and written by the Python writers."""
+    return aligner.can_emit() and not os.environ.get("THERMITE_NO_EMIT")
+
+
+def profile_to(profile_dir: Optional[str], engine: str, device, mesh):
+    """The context a file entry point runs in: ``torch.profiler`` when
+    ``profile_dir`` is given (CPU activity; CUDA too when the batch
+    engine runs on a card), writing one Chrome trace file into it at the
+    end; else nothing."""
+    if not profile_dir:
+        return nullcontext()
+    import torch
+
+    from ..utils.profile import traced_to
+
+    dev = torch.device(mesh[0] if mesh else device)
+    return traced_to(profile_dir, engine == "batch" and dev.type == "cuda")
+
 
 def align_reads_from_file(
     index: Index,
@@ -60,23 +86,37 @@ def align_reads_from_file(
     output_path: str,
     output_fmt: str,
     opts: AlignOpts,
-    engine: str = "batch",
+    engine: str = "oracle",
     batch_size: int = 16384,
     verbose: bool = False,
     device: str = "cuda",
     shard=None,
+    mesh=None,
+    profile_dir: Optional[str] = None,
 ) -> None:
     """``shard=(host_id, num_hosts)`` aligns only this host's contiguous
     block of the input reads (``parallel.multihost.shard_bounds``), so
-    merging the shards in host order restores the input order."""
+    merging the shards in host order restores the input order.  ``mesh``
+    (``parallel.mesh.make_mesh``) goes to ``BatchAligner``.
+    ``profile_dir`` traces the run (``profile_to``); the output does not
+    change."""
+    with profile_to(profile_dir, engine, device, mesh):
+        _align_reads(index, query_paths, output_path, output_fmt, opts,
+                     engine, batch_size, verbose, device, shard, mesh)
+
+
+def _align_reads(index, query_paths, output_path, output_fmt, opts, engine,
+                 batch_size, verbose, device, shard, mesh) -> None:
+    run = fmt_code = None
     if engine == "oracle":
-        aligner = run = fmt_code = None
+        aligner = OracleAligner(index, opts)
     elif engine == "batch":
         from .batch import BatchAligner
 
-        aligner = BatchAligner(index, opts, device=device)
-        fmt_code = 2 if output_fmt == FORMAT_PAF else output_fmt == FORMAT_BAM
-        run = aligner.align_batch_emit
+        aligner = BatchAligner(index, opts, device=device, mesh=mesh)
+        if emit_in_cpp(aligner):
+            fmt_code = 2 if output_fmt == FORMAT_PAF else output_fmt == FORMAT_BAM
+            run = aligner.align_batch_emit
     elif engine == "cpp":
         if output_fmt not in (FORMAT_SAM, FORMAT_BAM):
             raise ValueError("--engine cpp writes SAM/BAM only")
@@ -102,6 +142,16 @@ def align_reads_from_file(
                     yield rec
                 i += 1
 
+    def batches():
+        buf = []
+        for rec in records():
+            buf.append(rec)
+            if len(buf) >= batch_size:
+                yield buf
+                buf = []
+        if buf:
+            yield buf
+
     binary = output_fmt == FORMAT_BAM
     if output_path == "-":
         fh = sys.stdout.buffer if binary else sys.stdout
@@ -114,40 +164,36 @@ def align_reads_from_file(
             writer = BamWriter(fh, index)
         else:
             writer = None
-        if engine == "oracle":
-            _oracle_run(index, records(), writer, fh, opts)
-            return
-        buf = []
-
-        def flush():
-            raw = run([(r.id, r.seq, r.qual) for r in buf], fmt_code)
-            if writer is not None:
-                writer.write_raw(raw)
-            else:  # PAF: text handle, no header
-                fh.write(raw.decode())
-
-        for rec in records():
-            buf.append(rec)
-            if len(buf) >= batch_size:
-                flush()
-                buf = []
-        if buf:
-            flush()
+        if run is not None:
+            for buf in batches():
+                raw = run([(r.id, r.seq, r.qual) for r in buf], fmt_code)
+                if writer is not None:
+                    writer.write_raw(raw)
+                else:  # PAF: text handle, no header
+                    fh.write(raw.decode())
+        elif engine == "oracle":
+            _write_records(index, ((rec, aligner.align_read(rec.seq))
+                                   for rec in records()), writer, fh)
+        else:  # the batch engine's objects through the Python writers
+            _write_records(
+                index,
+                (pair for buf in batches() for pair in
+                 zip(buf, aligner.align_batch([r.seq for r in buf]))),
+                writer, fh)
         if writer is not None:
             writer.finish()
-        if verbose:
+        if verbose and engine != "oracle":
             print(aligner.stats.report(), file=sys.stderr)
     finally:
         if fh is not sys.stdout and fh is not sys.stdout.buffer:
             fh.close()
 
 
-def _oracle_run(index, records, writer, fh, opts) -> None:
-    """The sequential oracle over ``records`` through the Python writers
-    (``writer`` None: PAF lines to the text handle ``fh``)."""
-    aligner = OracleAligner(index, opts)
-    for rec in records:
-        alns = aligner.align_read(rec.seq)
+def _write_records(index, results, writer, fh) -> None:
+    """``results`` yields (record, its alignments); each goes through the
+    Python writers (``writer`` None: PAF lines to the text handle
+    ``fh``)."""
+    for rec, alns in results:
         qual = rec.qual if rec.qual is not None else b""
         if not alns:
             if writer is not None:
@@ -159,5 +205,3 @@ def _oracle_run(index, records, writer, fh, opts) -> None:
                                                aln, len(alns), i + 1))
             else:
                 fh.write(paf_line(rec.id, rec.seq, aln, len(alns)) + "\n")
-    if writer is not None:
-        writer.finish()

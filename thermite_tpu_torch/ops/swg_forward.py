@@ -36,6 +36,7 @@ from .swg_stream import (
     _windows,
     band_max_of,
     meta9,
+    on_device_of,
     raise_for_launch,
     slots_per_lane,
 )
@@ -74,11 +75,12 @@ def swg_forward(ref_nib, ref_lw, reads_nib, meta, XMAX: int, YMAX: int,
                       device=meta.device)
     if meta.shape[0] == 0:
         return out
-    err = kernel_lib("swg_forward").thermite_swg_forward_launch(
-        *_launch_args(ref_nib, ref_lw, reads_nib, meta), XMAX, YMAX,
-        band_max_of(meta, band_max), ctypes.c_void_p(out.data_ptr()),
-        _current_stream(meta),
-    )
+    bmax = band_max_of(meta, band_max)
+    with on_device_of(meta):
+        err = kernel_lib("swg_forward").thermite_swg_forward_launch(
+            *_launch_args(ref_nib, ref_lw, reads_nib, meta), XMAX, YMAX,
+            bmax, ctypes.c_void_p(out.data_ptr()), _current_stream(meta),
+        )
     raise_for_launch(err, "swg_forward")
     swg_forward.launches += 1
     return out

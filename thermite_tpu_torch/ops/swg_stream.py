@@ -443,6 +443,14 @@ def _current_stream(meta):
     return ctypes.c_void_p(torch.cuda.current_stream(meta.device).cuda_stream)
 
 
+def on_device_of(meta):
+    """The context every launch runs in: ``meta``'s device made current.
+    The C launch functions act on the current device (the kernel's
+    shared-memory attribute is set on it, and its stream must belong to
+    it), which need not be the device of the tensors."""
+    return torch.cuda.device(meta.device)
+
+
 def _launch(counter, ref_nib, ref_lw, reads_nib, meta, XMAX, YMAX, SMAX,
             band_max: int):
     """Launch the stream kernel on the current stream and add one to
@@ -454,12 +462,13 @@ def _launch(counter, ref_nib, ref_lw, reads_nib, meta, XMAX, YMAX, SMAX,
     streams = torch.empty((N, SMAX // 16), dtype=torch.int32,
                           device=meta.device)
     if N:
-        err = kernel_lib("swg_stream").thermite_swg_stream_launch(
-            *_launch_args(ref_nib, ref_lw, reads_nib, meta),
-            XMAX, YMAX, SMAX, int(band_max),
-            ctypes.c_void_p(hdr.data_ptr()),
-            ctypes.c_void_p(streams.data_ptr()), _current_stream(meta),
-        )
+        with on_device_of(meta):
+            err = kernel_lib("swg_stream").thermite_swg_stream_launch(
+                *_launch_args(ref_nib, ref_lw, reads_nib, meta),
+                XMAX, YMAX, SMAX, int(band_max),
+                ctypes.c_void_p(hdr.data_ptr()),
+                ctypes.c_void_p(streams.data_ptr()), _current_stream(meta),
+            )
         raise_for_launch(err, counter.__name__)
         counter.launches += 1
     return hdr, streams

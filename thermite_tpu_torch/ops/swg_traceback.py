@@ -58,6 +58,7 @@ from .swg_stream import (
     _windows,
     band_max_of,
     meta9,
+    on_device_of,
     problem_smem_words,
     raise_for_launch,
     slots_per_lane,
@@ -223,11 +224,12 @@ def swg_traceback(ref_nib, ref_lw, reads_nib, meta, XMAX: int, YMAX: int,
     if meta.shape[0]:
         from ._build import kernel_lib
 
-        err = kernel_lib("swg_traceback").thermite_swg_traceback_launch(
-            *_launch_args(ref_nib, ref_lw, reads_nib, meta), XMAX, YMAX,
-            RMAX, bmax, ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_void_p(runs.data_ptr()), _current_stream(meta),
-        )
+        with on_device_of(meta):
+            err = kernel_lib("swg_traceback").thermite_swg_traceback_launch(
+                *_launch_args(ref_nib, ref_lw, reads_nib, meta), XMAX, YMAX,
+                RMAX, bmax, ctypes.c_void_p(out.data_ptr()),
+                ctypes.c_void_p(runs.data_ptr()), _current_stream(meta),
+            )
         raise_for_launch(err, "swg_traceback")
         swg_traceback.launches += 1
     return out, runs
@@ -256,13 +258,15 @@ def swg_traceback_dense(x, y, params, XMAX: int, YMAX: int, RMAX: int = 64,
     if n:
         from ._build import kernel_lib
 
-        err = kernel_lib("swg_traceback").thermite_swg_traceback_dense_launch(
-            ctypes.c_void_p(x.data_ptr()), ctypes.c_int64(x.shape[1]),
-            ctypes.c_void_p(y.data_ptr()), ctypes.c_int64(y.shape[1]),
-            ctypes.c_void_p(params.data_ptr()), ctypes.c_int64(n), XMAX,
-            YMAX, RMAX, bmax, ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_void_p(runs.data_ptr()), _current_stream(params),
-        )
+        lib = kernel_lib("swg_traceback")
+        with on_device_of(params):
+            err = lib.thermite_swg_traceback_dense_launch(
+                ctypes.c_void_p(x.data_ptr()), ctypes.c_int64(x.shape[1]),
+                ctypes.c_void_p(y.data_ptr()), ctypes.c_int64(y.shape[1]),
+                ctypes.c_void_p(params.data_ptr()), ctypes.c_int64(n), XMAX,
+                YMAX, RMAX, bmax, ctypes.c_void_p(out.data_ptr()),
+                ctypes.c_void_p(runs.data_ptr()), _current_stream(params),
+            )
         raise_for_launch(err, "swg_traceback_dense")
         swg_traceback_dense.launches += 1
     return out, runs

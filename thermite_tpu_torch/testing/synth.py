@@ -6,7 +6,7 @@ generators synthesize stand-ins at matched scale: a chromosome of the
 requested length with spliced genes on both strands (chr21-like
 density), and error-bearing reads whose TRUE origin is encoded in the
 read name so accuracy can be scored against ground truth
-(the reference's ``testing.alignment_metrics`` --truth mode).
+(``testing/alignment_metrics.py``, its ``--truth`` mode).
 """
 
 from __future__ import annotations

@@ -921,8 +921,11 @@ def chunk_launch(aligner, st):
         else st.meta_all
     sub = meta_dev[aligner._device_rows(meta_dev)]
     meta_np = aligner._pack_meta(aligner._pad_meta(sub, aligner._NFWD1))
-    words = aligner._ref_text()
-    args = (words, words.shape[0], st.reads_dev, aligner._upload(meta_np),
+    from thermite_tpu_torch.device import upload
+
+    words = aligner._ref_text()[0]
+    args = (words, words.shape[0], st.reads_dev[0],
+            upload(meta_np, aligner.device),
             aligner._XMAX, aligner._YMAX, aligner._SMAX)
     return args, int(sub[:, 7].max(initial=1)), len(sub), meta_np
 
@@ -950,7 +953,7 @@ def phase_syn45(tmp):
     aligner.align_batch_emit(warm, True)  # text upload, first launches
     torch.cuda.synchronize()
     log(f"  warm-up: 8192 reads in {time.perf_counter() - t3:.2f} s "
-        f"(resident text {aligner._ref_text().numel() * 4 / 1e6:.1f} MB)")
+        f"(resident text {aligner._ref_text()[0].numel() * 4 / 1e6:.1f} MB)")
 
     aligner.stats.reset()
     reset_launches()
@@ -1044,29 +1047,29 @@ def phase_no_native(index, opts, aligner, recs):
 
 
 def _profile_run(aligner, recs):
-    """One more run under torch.profiler: the device's busy time (the
+    """One more run under torch.profiler: each card's busy time (the
     union of its kernel and copy intervals) against the run's wall time
-    (traced, so slower), and the device time by kernel or copy."""
+    (traced, so slower), and the device time by kernel or copy.  A
+    profiler that fails, or records no device time, fails the phase."""
     import torch
 
     from thermite_tpu_torch.utils.profile import device_busy, profiled
 
-    try:
-        with profiled(cuda=True) as prof:
-            t0 = time.perf_counter()
-            aligner.align_batch_emit(recs, True)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        busy_us, by_name = device_busy(prof)
-    except RuntimeError as e:
-        log(f"  profiler unavailable ({e}); device busy share not measured")
-        return
-    if not busy_us:
-        log("  profiler recorded no device time; device busy share not measured")
-        return
-    busy = busy_us / 1e6
-    log(f"  profiled run: wall {wall:.3f} s, device busy {1e3 * busy:.3f} ms "
-        f"({100 * busy / wall:.2f}% of wall, idle {100 - 100 * busy / wall:.2f}%)")
+    with profiled(cuda=True) as prof:
+        t0 = time.perf_counter()
+        aligner.align_batch_emit(recs, True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, by_name = device_busy(prof)
+    cards = {d.index for d in aligner.mesh}
+    check(all(busy_us.get(card) for card in cards),
+          f"profiler recorded device time on cards {sorted(busy_us)}, the "
+          f"run used {sorted(cards)}")
+    for card, us in sorted(busy_us.items()):
+        busy = us / 1e6
+        log(f"  profiled run: wall {wall:.3f} s, card {card} busy "
+            f"{1e3 * busy:.3f} ms ({100 * busy / wall:.2f}% of wall, idle "
+            f"{100 - 100 * busy / wall:.2f}%)")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
         log(f"    {name[:70]}: {t / 1e3:.3f} ms over {n} calls")
 
@@ -1113,7 +1116,7 @@ def phase_mesh(index, opts, aligner, recs, warm, raw, base_launches,
         rate = timed_runs(lambda: meshed.align_batch_emit(recs, True),
                           len(recs), wall)
         log(f"  mesh {name}: median {rate:.1f} reads/s beside phase 3's "
-            f"{base_rate:.1f} (one device, no mesh)")
+            f"{base_rate:.1f} (one device, mesh not given)")
         _profile_run(meshed, recs)
         del meshed
 
@@ -1161,7 +1164,7 @@ def phase_cpp_referee(aligner, recs):
     st, _ = aligner._build_chunk(reads, 0)
     aligner._dispatch_forward(st)
     hdr = expand_stream_hdr(st.hdr.wait()[: len(st.fwd_idx)])
-    dev_streams = st.fwd_streams[: len(st.fwd_idx)].cpu().numpy()
+    dev_streams = st.fwd_streams[0][: len(st.fwd_idx)].cpu().numpy()
     n = len(st.meta_all)
     pw_host = aligner._SMAX_HOST // 16
     kern = np.zeros((n, 4 + pw_host), np.int32)
@@ -1217,6 +1220,7 @@ def phase_traceback_path(aligner, st):
     -> the launches of both forms in this run."""
     import torch
 
+    from thermite_tpu_torch.device import upload
     from thermite_tpu_torch.ops.runs import decode_runs_one, decode_stream_batch
     from thermite_tpu_torch.ops.swg_ref import SwgExtend
     from thermite_tpu_torch.ops.swg_stream import swg_stream
@@ -1232,13 +1236,13 @@ def phase_traceback_path(aligner, st):
     XMAX, YMAX = up32(sub[:, 6].max()), up32(sub[:, 3].max())
     SMAX = 16 * ((int((sub[:, 6] + sub[:, 3]).max()) + 2 + 15) // 16)
     bmax = int(sub[:, 7].max())
-    meta = aligner._upload(aligner._pack_meta(sub))
-    words = aligner._ref_text()
-    dense = dense_from_gather(words, st.reads_dev, meta, XMAX, YMAX)
+    meta = upload(aligner._pack_meta(sub), aligner.device)
+    words, reads = aligner._ref_text()[0], st.reads_dev[0]
+    dense = dense_from_gather(words, reads, meta, XMAX, YMAX)
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    out, runs = swg_traceback(words, words.shape[0], st.reads_dev, meta, XMAX,
+    out, runs = swg_traceback(words, words.shape[0], reads, meta, XMAX,
                               YMAX, 24, band_max=bmax)
     torch.cuda.synchronize()
     k_ms = (time.perf_counter() - t0) * 1e3
@@ -1247,7 +1251,7 @@ def phase_traceback_path(aligner, st):
     launches = read_launches()
     check(bool((out_d == out).all()) and bool((runs_d == runs).all()),
           "kernel 4's dense form differs from its gather form on the chunk")
-    fused = swg_stream(words, words.shape[0], st.reads_dev, meta, XMAX, YMAX,
+    fused = swg_stream(words, words.shape[0], reads, meta, XMAX, YMAX,
                        SMAX, band_max=bmax, fused=True).cpu().numpy()
     out, runs = out.cpu().numpy(), runs.cpu().numpy()
     check((out[:, :3] == fused[:, :3]).all(),

@@ -14,9 +14,9 @@ import torch
 
 from test_torch_batch import fixture_case, synth_case  # noqa: F401 (fixtures)
 from thermite_tpu.align.batch import BatchAligner as RefBatchAligner
-from thermite_tpu_torch.align import batch as port_batch
 from thermite_tpu_torch.align.batch import BatchAligner
 from thermite_tpu_torch.ops.swg_stream import swg_stream
+from thermite_tpu_torch.parallel import mesh as port_mesh
 from torch_sides import plain
 
 torch.set_num_threads(1)
@@ -113,7 +113,8 @@ def test_full_band_meta_reaches_the_kernel_unnarrowed(monkeypatch,
                      if args[3].shape[1] == 9 else None))
         return swg_stream(*args, **kw)
 
-    monkeypatch.setattr(port_batch, "swg_stream", spy)
+    # the pipeline launches through the mesh, of one device here
+    monkeypatch.setattr(port_mesh, "swg_stream", spy)
     ref, port = _pair(index, opts, narrow_band=0)
     reads = [r[1] for r in recs[:100]]
     assert plain(port.align_batch(reads)) == plain(ref.align_batch(reads))

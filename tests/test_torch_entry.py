@@ -229,9 +229,10 @@ def test_cli_cpp_engine_equals_reference(synth):
     (["--profile", "p"], "item 9"),
 ])
 def test_flags_not_ported_raise(tmp_path, flag, item):
-    """The three flags that raised NotImplementedError (each naming its
-    ROADMAP item) are ported: the CLI takes them and goes on to load the
-    index, which is not there."""
+    """The test keeps the name and the cases it had while these three
+    flags raised NotImplementedError (``item`` named the ROADMAP entry of
+    each).  They are ported now: the CLI takes them and goes on to load
+    the index, which is not there."""
     with pytest.raises(FileNotFoundError):
         port_main(["align", str(tmp_path / "i.npz"), "r.fq", *flag,
                    "--device", "cpu"])
@@ -351,28 +352,55 @@ def test_no_emit_gives_the_same_bytes(synth, monkeypatch, ext, paired):
     assert got == _read(emit, ext == ".bam") and len(got) > 0
 
 
-def test_can_emit_follows_the_engine(synth):
-    _, _, _, index, _, opts = synth
-    assert BatchAligner(index.port, opts.port, device="cpu").can_emit()
-    assert not BatchAligner(index.port, opts.port, device="cpu",
-                            use_native=False).can_emit()
-
-
-def test_file_entry_defaults_follow_the_reference(synth):
-    """``engine`` defaults to the oracle as in the reference (no device is
-    touched); ``device`` stays ``cuda``: the batch engine runs on the card
-    unless asked for the CPU."""
+def test_file_entry_defaults_follow_the_reference(synth, monkeypatch):
+    """All but ``engine``, the port's one departure.  A call with the defaults runs the batch engine on the card, where
+    the reference's default is the oracle (which touches no device): here
+    without a card it raises, and with the defaults' device swapped for
+    the CPU it builds a ``BatchAligner`` and gives the oracle's bytes.
+    ``engine="oracle"`` asks for the oracle by name, as in the
+    reference."""
     d, _, fq, index, _, opts = synth
     port_sig = inspect.signature(align_reads_from_file).parameters
     ref_sig = inspect.signature(ref_align_file).parameters
-    assert port_sig["engine"].default == ref_sig["engine"].default == "oracle"
+    assert port_sig["engine"].default == "batch"
+    assert ref_sig["engine"].default == "oracle"
     assert port_sig["device"].default == "cuda"
     for name in ("profile_dir", "shard", "mesh"):
         assert port_sig[name].default is ref_sig[name].default is None
-    got, want = str(d / "default_engine.sam"), str(d / "ref_default.sam")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            align_reads_from_file(index.port, [fq], str(d / "no_card.sam"),
+                                  FORMAT_SAM, opts.port)
+    built = []
+    init = BatchAligner.__init__
+
+    def on_cpu(self, *a, **k):
+        built.append(k.pop("device"))
+        init(self, *a, device="cpu", **k)
+
+    monkeypatch.setattr(BatchAligner, "__init__", on_cpu)
+    got, by_name, want = (str(d / n) for n in (
+        "default_engine.sam", "oracle_by_name.sam", "ref_default.sam"))
     align_reads_from_file(index.port, [fq], got, FORMAT_SAM, opts.port)
+    assert built == ["cuda"]
+    align_reads_from_file(index.port, [fq], by_name, FORMAT_SAM, opts.port,
+                          engine="oracle")
+    assert built == ["cuda"]  # the oracle builds no batch aligner
     ref_align_file(index.ref, [fq], want, FORMAT_SAM, opts.ref)
-    assert _read(got, False) == _read(want, False)
+    assert _read(got, False) == _read(by_name, False) == _read(want, False)
+
+
+def test_emit_without_the_engine_needs_no_switch(synth):
+    """An aligner without the C++ engine serializes in its emit methods by
+    the Python writers: the file entry points have one switch,
+    ``THERMITE_NO_EMIT``, and ask the aligner nothing."""
+    _, _, _, index, recs, opts = synth
+    want = BatchAligner(index.port, opts.port, device="cpu"
+                        ).align_batch_emit(recs[:60], False)
+    got = BatchAligner(index.port, opts.port, device="cpu", use_native=False
+                       ).align_batch_emit(recs[:60], False)
+    assert got == want and len(got) > 0
+    assert not hasattr(BatchAligner, "can_emit")
 
 
 @pytest.mark.parametrize("paired", [False, True], ids=["single", "paired"])
@@ -392,6 +420,28 @@ def test_profile_writes_a_trace_and_keeps_the_bytes(synth, paired):
     with open(traces[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "cpu_op" for e in events)
+
+
+def test_device_busy_is_per_card():
+    """``device_busy`` unions the device intervals of each card apart:
+    spans that overlap on one card count once, spans of two cards at the
+    same time count on both, and host events count on none."""
+    from types import SimpleNamespace as NS
+
+    from torch.autograd import DeviceType
+
+    from thermite_tpu_torch.utils.profile import device_busy
+
+    def ev(card, start, end, name, kind=DeviceType.CUDA):
+        return NS(device_type=kind, device_index=card, name=name,
+                  time_range=NS(start=start, end=end))
+
+    prof = NS(events=lambda: [
+        ev(0, 0, 10, "k"), ev(0, 5, 12, "copy"), ev(0, 20, 21, "k"),
+        ev(1, 0, 10, "k"), ev(0, 0, 100, "host op", DeviceType.CPU)])
+    busy, by_name = device_busy(prof)
+    assert busy == {0: 13, 1: 10}
+    assert by_name == {"k": (21, 3), "copy": (7, 1)}
 
 
 def test_coordinator_is_accepted_and_not_used(synth, capsys):

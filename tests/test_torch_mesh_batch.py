@@ -125,7 +125,8 @@ def test_launch_rows_divide_by_the_mesh(small):
     none = _port(small, "narrowed")
     for n in (1, 128, 129, 5000):
         assert one._rows_bucket(n, 0) == none._rows_bucket(n, 0)
-    assert none.mesh is None and none._nsh == 1
+    # no mesh given: the mesh of the one device, on the same code
+    assert none.mesh == one.mesh == (torch.device("cpu"),) and none._nsh == 1
 
 
 @pytest.mark.parametrize("fmt_bam", [False, True, 2], ids=["sam", "bam", "paf"])

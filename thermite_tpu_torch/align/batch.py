@@ -29,12 +29,13 @@ builds chunk k+1 and finalizes chunk k-1.  Device results cross to the
 host by non-blocking copies into pinned memory, each followed by a CUDA
 event that the host waits on where it needs the values.
 
-With ``mesh=`` (``parallel/mesh.py``) the text and each chunk's read
-block are replicated on every device of the mesh, each launch's rows are
-split round-robin over them after they were ordered and padded as one
-launch, every device keeps its op streams resident and gathers its own
-winners, and the host merges headers and winners' streams in input order:
-every later stage sees the arrays of a single-device run.
+The aligner's devices are a mesh (``parallel/mesh.py``): ``mesh=`` names
+them, and without it the mesh is the one ``device``.  The text and each
+chunk's read block are replicated on every device of the mesh, each
+launch's rows are split round-robin over them after they were ordered and
+padded as one launch, every device keeps its op streams resident and
+gathers its own winners, and the host merges headers and winners' streams
+in input order.  One device is the mesh of one entry, on the same code.
 """
 
 from __future__ import annotations
@@ -64,9 +65,8 @@ from ..ops.layout import (
     pack_text_nib_host,
 )
 from ..ops.runs import decode_stream_batch
-from ..ops.swg_forward import swg_forward
 from ..ops.swg_ref import SwgExtend
-from ..ops.swg_stream import PACKED_BAND_MAX, swg_stream
+from ..ops.swg_stream import PACKED_BAND_MAX
 from ..parallel.mesh import (
     check_mesh,
     merge_rows,
@@ -106,41 +106,35 @@ def _pow2_bucket(n: int, lo: int) -> int:
 
 
 class _HostCopy:
-    """A device-to-host copy in flight: a non-blocking copy into pinned
-    memory and a CUDA event after it.  ``wait()`` is the sync point and
-    returns the numpy view.  A CPU tensor is its own host copy."""
-
-    def __init__(self, t: torch.Tensor):
-        self._event = None
-        if t.device.type == "cuda" and t.numel() == 0:
-            self._host = torch.empty(t.shape, dtype=t.dtype)
-        elif t.device.type == "cuda":
-            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._host.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            # on the tensor's device, which need not be the current one
-            self._event.record(torch.cuda.current_stream(t.device))
-        else:
-            self._host = t
-
-    def wait(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy()
-
-
-class _MeshCopy:
-    """The row blocks of a mesh's devices on their way to the host: one
-    ``_HostCopy`` per device, waited in mesh order; ``wait()`` returns the
-    ``n_rows`` rows merged in input order (``merge_rows``)."""
+    """The row blocks of the mesh's devices on their way to the host: per
+    device a non-blocking copy into pinned memory and a CUDA event after
+    it.  ``wait()`` is the sync point: it waits for the devices in mesh
+    order and returns the ``n_rows`` rows merged in input order
+    (``merge_rows``).  A CPU tensor is its own host copy."""
 
     def __init__(self, parts, n_rows: int, index=None):
-        self._copies = [_HostCopy(p) for p in parts]
+        self._parts = [self._start(p) for p in parts]
         self._n_rows, self._index = n_rows, index
 
+    @staticmethod
+    def _start(t: torch.Tensor):
+        if t.device.type != "cuda":
+            return t, None
+        if t.numel() == 0:
+            return torch.empty(t.shape, dtype=t.dtype), None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        # on the tensor's device, which need not be the current one
+        event.record(torch.cuda.current_stream(t.device))
+        return host, event
+
     def wait(self) -> np.ndarray:
-        return merge_rows([c.wait() for c in self._copies], self._n_rows,
-                          self._index)
+        for _, event in self._parts:
+            if event is not None:
+                event.synchronize()
+        return merge_rows([host.numpy() for host, _ in self._parts],
+                          self._n_rows, self._index)
 
 
 class _Problems:
@@ -190,12 +184,12 @@ class _ChunkState:
     meta_all: Optional[np.ndarray] = None  # (P, 9) problem meta
     tasks_arr: Optional[np.ndarray] = None  # (T, 10) int64
     reads_host: Optional[np.ndarray] = None  # padded read block (rows, RPAD)
-    reads_dev: Optional[torch.Tensor] = None  # nibble-packed read block
-    reads_mesh: Optional[list] = None  # its replicas, one per mesh entry
+    # nibble-packed read block: its replicas, one per mesh entry
+    reads_dev: Optional[list] = None
     fwd_idx: Optional[np.ndarray] = None  # pids sent to the kernel, by row
     hdr: Optional[_HostCopy] = None  # packed headers in flight
-    # device op streams (Nb, PW); under a mesh each device's (Nb / n, PW)
-    fwd_streams: object = None
+    # device op streams: each mesh entry's (Nb / n, PW)
+    fwd_streams: Optional[list] = None
     inv_rows: Optional[np.ndarray] = None  # pid -> device row (-1 none)
     patched: Optional[np.ndarray] = None  # pids recomputed at full band
     tb_full: Optional[np.ndarray] = None  # pid-indexed stream rows
@@ -293,12 +287,12 @@ class BatchAligner:
                  use_native: bool = True, mesh=None):
         # mesh: a tuple of torch devices (parallel.mesh.make_mesh); it
         # then names the devices, and ``device`` is not read.  The same
-        # device may stand in it more than once.  None: one device, one
-        # launch a chunk.
-        self.mesh = None if mesh is None else check_mesh(mesh)
-        self.device = self.mesh[0] if self.mesh else _device.resolve(device)
+        # device may stand in it more than once.  None: the mesh of the
+        # one ``device``, one launch a chunk.
+        self.mesh = check_mesh((device,) if mesh is None else mesh)
+        self.device = self.mesh[0]
         # launch rows pad to a multiple of the mesh size
-        self._nsh = len(self.mesh) if self.mesh else 1
+        self._nsh = len(self.mesh)
         self.index = index
         self.opts = opts
         # problems are submitted at band min(band, narrow_band); the
@@ -328,51 +322,23 @@ class BatchAligner:
         eng = host_engine(index, opts, use_native)
         self.seeder, self.tx_off = eng.seeder, eng.tx_off
         self._ref_text_host, self.native = eng.ref_text, eng.native
-        self._ref_text_dev = None  # device copy, uploaded on first use
-        self._ref_text_mesh = None  # one per mesh entry
+        # device copies, one per mesh entry, uploaded on first use
+        self._ref_text_dev = None
 
     def _narrowing(self) -> bool:
         return self.native is not None and self.narrow_band > 0
 
-    def can_emit(self) -> bool:
-        """Whether the ``*_emit`` methods serialize in C++ (they need the
-        engine; without it callers take ``align_batch`` and the Python
-        writers)."""
-        return self.native is not None
-
     # ------------------------------------------------------------------
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """Host array -> device tensor (through pinned memory, async)."""
-        return _device.upload(arr, self.device)
-
-    def _ref_text(self) -> torch.Tensor:
-        """Device-resident nibble-packed reference text (Lw,) int32 (on
-        the first device of a mesh)."""
+    def _ref_text(self) -> list:
+        """Device-resident nibble-packed reference text (Lw,) int32: its
+        replicas, one per mesh entry."""
         if self._ref_text_dev is None:
             lw = nib_lw(len(self._ref_text_host))
             nib = getattr(self.index, "text_nib_arr", None)
             if nib is None or len(nib) != lw:
                 nib = pack_text_nib_host(self._ref_text_host)
-            if self.mesh:
-                self._ref_text_mesh = replicate(self.mesh, nib)
-                self._ref_text_dev = self._ref_text_mesh[0]
-            else:
-                self._ref_text_dev = self._upload(nib)
+            self._ref_text_dev = replicate(self.mesh, nib)
         return self._ref_text_dev
-
-    def _ref_texts(self) -> list:
-        """The text's replicas, one per mesh entry."""
-        self._ref_text()
-        return self._ref_text_mesh
-
-    def _upload_reads(self, st: "_ChunkState", nib: np.ndarray) -> None:
-        """The chunk's nibble-packed read block onto the device, or onto
-        every device of the mesh."""
-        if self.mesh:
-            st.reads_mesh = replicate(self.mesh, nib)
-            st.reads_dev = st.reads_mesh[0]
-        else:
-            st.reads_dev = self._upload(nib)
 
     def _rows_bucket(self, n: int, sticky: int) -> int:
         """Row count of a launch of ``n`` problems: a power of two from
@@ -622,7 +588,8 @@ class BatchAligner:
         else:
             upload = np.zeros((rows, RPAD), np.uint8)
             upload[: len(reads_pad)] = reads_pad
-        self._upload_reads(st, self.native.nib_pack_reads(upload))
+        st.reads_dev = replicate(self.mesh,
+                                 self.native.nib_pack_reads(upload))
         return st, start + consumed
 
     def _build_chunk_py(self, all_reads: List[bytes], start: int,
@@ -696,7 +663,8 @@ class BatchAligner:
         for ri, r in enumerate(reads):
             reads_pad[ri, : len(r)] = np.frombuffer(r, np.uint8)
         st.reads_host = reads_pad
-        self._upload_reads(st, pack_reads_nib_host(reads_pad.reshape(-1)))
+        st.reads_dev = replicate(
+            self.mesh, pack_reads_nib_host(reads_pad.reshape(-1)))
         st.meta_all = problems.meta()
         return st, pos
 
@@ -776,10 +744,10 @@ class BatchAligner:
         return idx[np.argsort(meta[idx, 3], kind="stable")]
 
     def _dispatch_forward(self, st: _ChunkState) -> None:
-        """Launch the chunk's device pass on every nontrivial problem:
-        the stream kernel (scores and walks; headers start their copy to
-        the host) with the C++ engine, the forward-scores kernel
-        without."""
+        """Launch the chunk's device pass on every nontrivial problem,
+        once per mesh entry: the stream kernel (scores and walks; headers
+        start their copy to the host) with the C++ engine, the
+        forward-scores kernel without."""
         meta_all = st.meta_all
         narrowing = self._narrowing()
         meta_dev = self._narrow_meta(meta_all) if narrowing else meta_all
@@ -787,24 +755,16 @@ class BatchAligner:
         st.fwd_idx = self._device_rows(meta_dev)
         sub = meta_dev[st.fwd_idx]
         bmax = int(sub[:, 7].max(initial=1))
-        words = self._ref_text()
-        # shapes, band bound and padding are those of the whole launch;
-        # under a mesh every device runs its part at the same shape
+        # shapes, band bound and padding are those of the whole launch:
+        # every device of the mesh runs its part at the same shape
         if self.native is None:
             nb = self._NFWD = self._rows_bucket(len(sub), self._NFWD)
             meta = self._pad_meta(sub, nb)
             self.stats.dp_cells += len(meta) * YMAX * W
-            packed = self._pack_meta(meta)
-            if self.mesh:
-                st.fwd = _MeshCopy(sharded_forward(
-                    self.mesh, self._ref_texts(), st.reads_mesh,
-                    scatter_rows(self.mesh, packed), XMAX, YMAX,
-                    band_max=bmax), nb)
-                return
-            st.fwd = _HostCopy(swg_forward(
-                words, words.shape[0], st.reads_dev, self._upload(packed),
-                XMAX, YMAX, band_max=bmax,
-            ))
+            st.fwd = _HostCopy(sharded_forward(
+                self.mesh, self._ref_text(), st.reads_dev,
+                scatter_rows(self.mesh, self._pack_meta(meta)), XMAX, YMAX,
+                band_max=bmax), nb)
             return
         seg = self._packed_seg(bmax)
         nb = self._NFWD1 = self._rows_bucket(len(sub), self._NFWD1)
@@ -825,20 +785,12 @@ class BatchAligner:
             _round_up(int((orig[:, 6] + orig[:, 3]).max(initial=1)) + 2, 16),
             self._SMAX, self._SMAX_HOST,
         )
-        packed = self._pack_meta(meta)
-        if self.mesh:
-            outs = sharded_stream(
-                self.mesh, self._ref_texts(), st.reads_mesh,
-                scatter_rows(self.mesh, packed), XMAX, YMAX, self._SMAX,
-                band_max=bmax)
-            st.hdr = _MeshCopy([hdr for hdr, _ in outs], nb)
-            st.fwd_streams = [streams for _, streams in outs]
-        else:
-            hdr, st.fwd_streams = swg_stream(
-                words, words.shape[0], st.reads_dev, self._upload(packed),
-                XMAX, YMAX, self._SMAX, band_max=bmax,
-            )
-            st.hdr = _HostCopy(hdr)
+        outs = sharded_stream(
+            self.mesh, self._ref_text(), st.reads_dev,
+            scatter_rows(self.mesh, self._pack_meta(meta)), XMAX, YMAX,
+            self._SMAX, band_max=bmax)
+        st.hdr = _HostCopy([hdr for hdr, _ in outs], nb)
+        st.fwd_streams = [streams for _, streams in outs]
         inv = np.full(len(meta_all), -1, np.int32)
         inv[st.fwd_idx] = np.arange(len(st.fwd_idx), dtype=np.int32)
         st.inv_rows = inv
@@ -861,8 +813,7 @@ class BatchAligner:
         with self.stats.dsync("arbitrate"):
             sub = st.hdr.wait()[: len(st.fwd_idx)]
         st.hdr = None
-        streams = st.fwd_streams[0] if self.mesh else st.fwd_streams
-        pw_host = max(self._SMAX_HOST // 16, int(streams.shape[1]))
+        pw_host = max(self._SMAX_HOST // 16, int(st.fwd_streams[0].shape[1]))
         full = np.zeros((n, 4 + pw_host), np.int32)
         full[st.fwd_idx, :4] = expand_stream_hdr(sub)
         bad = np.flatnonzero(full[:, 3] < 0)
@@ -977,9 +928,9 @@ class BatchAligner:
                                gene_idx=int(gene_idxs[0])), gx_task
 
     def _dispatch_traceback(self, st: _ChunkState) -> None:
-        """Walk the winners (without the C++ engine): one launch of the
-        stream kernel in the fused form on the nontrivial winners, rows
-        copied to the host."""
+        """Walk the winners (without the C++ engine): one launch per mesh
+        entry of the stream kernel in the fused form on the nontrivial
+        winners, rows copied to the host."""
         if not st.pid_list:
             return
         meta_sub = st.meta_all[np.asarray(st.pid_list, np.int64)]
@@ -999,18 +950,10 @@ class BatchAligner:
                       128),
             self._SMAX,
         )
-        packed = self._pack_meta(meta)
-        if self.mesh:
-            st.tb = _MeshCopy(sharded_stream(
-                self.mesh, self._ref_texts(), st.reads_mesh,
-                scatter_rows(self.mesh, packed), XMAX, YMAX, self._SMAX,
-                band_max=bmax, fused=True), nb)
-            return
-        words = self._ref_text()
-        st.tb = _HostCopy(swg_stream(
-            words, words.shape[0], st.reads_dev, self._upload(packed),
-            XMAX, YMAX, self._SMAX, band_max=bmax, fused=True,
-        ))
+        st.tb = _HostCopy(sharded_stream(
+            self.mesh, self._ref_text(), st.reads_dev,
+            scatter_rows(self.mesh, self._pack_meta(meta)), XMAX, YMAX,
+            self._SMAX, band_max=bmax, fused=True), nb)
 
     def _traceback_results(self, st: _ChunkState) -> Dict[int, Alignment]:
         """Wait for the winners' rows and decode them; -> pid -> the
@@ -1038,8 +981,8 @@ class BatchAligner:
 
     def _dispatch_stream_gather(self, st: _ChunkState) -> None:
         """Gather the winners' op streams out of the device-resident
-        chunk output and start their copy to the host; the rest never
-        leave the card."""
+        chunk output, each device its own, and start their copy to the
+        host; the rest never leave the card."""
         streams, st.fwd_streams = st.fwd_streams, None
         pids = np.asarray(st.pid_list, np.int64)
         if len(pids) == 0:
@@ -1052,16 +995,12 @@ class BatchAligner:
             return
         st.gather_pids = pids[keep]
         rows = rows[keep].astype(np.int64)
-        if self.mesh:
-            # row r lives on device r % n at local row r // n
-            n = self._nsh
-            at = [np.flatnonzero(rows % n == d) for d in range(n)]
-            st.gather = _MeshCopy(
-                [streams[d].index_select(
-                    0, _device.upload(rows[at[d]] // n, dev))
-                 for d, dev in enumerate(self.mesh)], len(rows), at)
-            return
-        st.gather = _HostCopy(streams.index_select(0, self._upload(rows)))
+        # row r lives on device r % n at local row r // n
+        n = self._nsh
+        at = [np.flatnonzero(rows % n == d) for d in range(n)]
+        st.gather = _HostCopy(
+            [streams[d].index_select(0, _device.upload(rows[at[d]] // n, dev))
+             for d, dev in enumerate(self.mesh)], len(rows), at)
 
     def _take_tb(self, st: _ChunkState) -> np.ndarray:
         """The pid-indexed stream rows for finalize, with the winners'

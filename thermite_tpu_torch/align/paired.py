@@ -391,8 +391,7 @@ def align_paired_from_files(
 
     ``engine``: ``batch`` runs the port's ``BatchAligner.align_paired_emit``
     on ``device`` (or on the devices of ``mesh``), or, when
-    ``THERMITE_NO_EMIT`` is set or the aligner has no C++ engine,
-    ``align_batch`` on the interleaved mates with ``pair_records`` and the
+    ``THERMITE_NO_EMIT`` is set (``run.emit_in_cpp``), ``align_batch`` on the interleaved mates with ``pair_records`` and the
     Python writers (the same bytes); ``cpp`` the all-C++ engine
     (``align/cpu.py``); ``oracle`` the sequential aligner
     (``align/driver.py``).  Pairs are flushed
@@ -456,8 +455,7 @@ def _align_pairs(index, path1, path2, output_path, output_fmt, opts, engine,
                 from .batch import BatchAligner
 
                 aligner = BatchAligner(index, opts, device=device, mesh=mesh)
-                run = aligner.align_paired_emit if emit_in_cpp(aligner) \
-                    else None
+                run = aligner.align_paired_emit if emit_in_cpp() else None
             else:
                 from .cpu import CppAligner
 

@@ -1,13 +1,14 @@
 """File-level alignment entry point of the port: FASTQ(s) in, PAF/SAM/BAM
 out.
 
-``engine="batch"`` runs the port's ``BatchAligner`` on ``device`` (or on
-the devices of ``mesh``); its records are emitted by the C++ engine, or,
-when ``THERMITE_NO_EMIT`` is set or the aligner has no C++ engine, built
-as objects by ``align_batch`` and written by the Python writers: the same
-bytes.  ``engine="cpp"`` is the all-C++ engine (``align/cpu.py``, SAM/BAM
-only); ``engine="oracle"`` the sequential oracle (``align/driver.py``),
-the default as in the reference.  Neither of the last two needs a device.
+``engine="batch"``, the default, runs the port's ``BatchAligner`` on
+``device`` (or on the devices of ``mesh``); its records are emitted by the
+C++ engine, or, when ``THERMITE_NO_EMIT`` is set, built as objects by
+``align_batch`` and written by the Python writers: the same bytes.  ``engine="cpp"`` is the all-C++ engine
+(``align/cpu.py``, SAM/BAM only); ``engine="oracle"`` the sequential
+oracle (``OracleAligner``).  Neither of the last two needs a device, so
+neither is the default here, where the reference's is the oracle: a call
+with the defaults runs on the card.
 """
 
 from __future__ import annotations
@@ -58,11 +59,13 @@ def _count_records(query_paths) -> int:
     return total
 
 
-def emit_in_cpp(aligner) -> bool:
-    """Whether a batch run's records come from the C++ emitter: the
-    aligner has the engine and ``THERMITE_NO_EMIT`` is not set.  Else
-    they are built as objects and written by the Python writers."""
-    return aligner.can_emit() and not os.environ.get("THERMITE_NO_EMIT")
+def emit_in_cpp() -> bool:
+    """Whether a batch run's records come from the aligner's emit methods
+    (the C++ emitter).  Under ``THERMITE_NO_EMIT`` they are built as
+    objects by ``align_batch`` and written by the Python writers instead:
+    the reference's switch for telling a fault of the emitter from one of
+    the pipeline, with the same bytes either way."""
+    return not os.environ.get("THERMITE_NO_EMIT")
 
 
 def profile_to(profile_dir: Optional[str], engine: str, device, mesh):
@@ -86,7 +89,7 @@ def align_reads_from_file(
     output_path: str,
     output_fmt: str,
     opts: AlignOpts,
-    engine: str = "oracle",
+    engine: str = "batch",
     batch_size: int = 16384,
     verbose: bool = False,
     device: str = "cuda",
@@ -114,7 +117,7 @@ def _align_reads(index, query_paths, output_path, output_fmt, opts, engine,
         from .batch import BatchAligner
 
         aligner = BatchAligner(index, opts, device=device, mesh=mesh)
-        if emit_in_cpp(aligner):
+        if emit_in_cpp():
             fmt_code = 2 if output_fmt == FORMAT_PAF else output_fmt == FORMAT_BAM
             run = aligner.align_batch_emit
     elif engine == "cpp":

@@ -81,10 +81,10 @@ def split_rows(n_rows: int, n_dev: int) -> List[np.ndarray]:
 def merge_rows(parts: Sequence[np.ndarray], n_rows: int,
                index: Optional[Sequence[np.ndarray]] = None) -> np.ndarray:
     """The devices' row blocks back in input order: (n_rows, ...) with
-    part d at ``index[d]`` (``split_rows(n_rows, len(parts))`` when not
-    given)."""
+    part d at ``index[d]`` (the rows of ``split_rows(n_rows, len(parts))``
+    when not given, as strided slices: a plain copy for a mesh of one)."""
     if index is None:
-        index = split_rows(n_rows, len(parts))
+        index = [slice(d, n_rows, len(parts)) for d in range(len(parts))]
     out = np.empty((n_rows,) + parts[0].shape[1:], parts[0].dtype)
     for rows, part in zip(index, parts):
         out[rows] = part

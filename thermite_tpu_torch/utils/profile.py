@@ -4,8 +4,8 @@ and the device's busy time for the on-card smoke test.
 ``profiled`` traces CPU activity always and CUDA activity when the run is
 on a card.  ``traced_to`` also exports what it recorded as one Chrome
 trace file (open it in chrome://tracing or Perfetto).  ``device_busy``
-reads a recording for the union of the device's kernel and copy intervals,
-which against the run's wall time is how far the host holds the card back.
+reads a recording for the union of each card's kernel and copy intervals,
+which against the run's wall time is how far the host holds that card back.
 """
 
 from __future__ import annotations
@@ -30,18 +30,19 @@ def profiled(cuda: bool):
         yield prof
 
 
-def device_busy(prof) -> Tuple[float, Dict[str, Tuple[float, int]]]:
-    """-> (busy microseconds: the union of the card's kernel and copy
-    intervals; {kernel or copy name: (microseconds, calls)})."""
+def device_busy(prof) -> Tuple[Dict[int, float], Dict[str, Tuple[float, int]]]:
+    """-> ({card index: busy microseconds, the union of that card's kernel
+    and copy intervals}; {kernel or copy name: (microseconds, calls), over
+    all cards})."""
     from torch.autograd import DeviceType
 
-    spans: List[Tuple[float, float, str]] = sorted(
-        (e.time_range.start, e.time_range.end, e.name)
+    spans: List[Tuple[int, float, float, str]] = sorted(
+        (e.device_index, e.time_range.start, e.time_range.end, e.name)
         for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy, reach, by_name = 0, float("-inf"), {}
-    for a, b, name in spans:
-        busy += max(b - max(a, reach), 0)
-        reach = max(reach, b)
+    busy, reach, by_name = {}, {}, {}
+    for card, a, b, name in spans:
+        busy[card] = busy.get(card, 0) + max(b - max(a, reach.get(card, a)), 0)
+        reach[card] = max(reach.get(card, b), b)
         t, n = by_name.get(name, (0, 0))
         by_name[name] = (t + b - a, n + 1)
     return busy, by_name

@@ -8,6 +8,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --time-kernels OUT.json  # no phases: kernel times
     python3 chip_smoke.py --mesh-only     # phases 1, 3 and 3f: for a host
                                           # with several cards
+    python3 chip_smoke.py --genome-only   # phases 1 and 7
 
 Phases, each printed with its own timing; any failure exits non-zero
 before the result lines are printed:
@@ -101,6 +102,17 @@ before the result lines are printed:
    --profile DIR (one trace file that holds a stream_kernel event on the
    card), with --coordinator on two host shards joined by merge, and
    under THERMITE_NO_EMIT=1, each with the bytes of the plain CLI run.
+7. genome scale: thermite_tpu_torch.tools.genome_scale at 1.2 Gbp, a
+   fwd+rc text of 2.4e9 nibbles, past 2^31: a
+   synthetic genome of 200 Mbp chromosomes indexed with a stride-4 seed
+   table, its text resident on the card, 16384 truth reads through
+   align_batch and align_batch_emit (BAM; the packed kernel must run),
+   truth overlap >= 0.99 and 100 reads == the oracle; sampled words of the
+   resident text == the host's; one real chunk of that run through the
+   packed kernel == swg_stream_plain bit for bit, with rows whose y
+   anchor lies at 2^31 nibbles or past, timed beside its bound and beside
+   syn45's chunk of phase 4; 4096 of the reads at full band (the
+   general-band kernel must run) with the narrowed run's BAM bytes.
 
 Every timed kernel is printed beside its bound: the larger of its
 integer operations (cells the plain version computes on the same inputs x
@@ -122,6 +134,8 @@ warm-up launches on the synthetic chunk shapes (as generated and with
 rows ordered by ylen) and on one real syn45 chunk (narrowed and at full
 band, in the pipeline's row order and shuffled), into OUT.json.
 kernel_ab.py runs that mode of two checkouts in turns on one card.
+
+--genome-only runs phases 1 and 7 and prints no result lines.
 
 --mesh-only runs phases 1, 3 and 3f and prints no result lines.  On a host
 with several cards phase 3f's first mesh is all of them, so this mode is
@@ -145,6 +159,10 @@ SYN_BP = 45_000_000
 N_READS = 49152
 N_ORACLE = 200
 N_NO_NATIVE = 4096
+GENOME_GBP = 1.2  # phase 7: a fwd+rc text of 2.4e9 nibbles, past 2^31
+N_GENOME_READS = 16384
+N_GENOME_SPOT = 100
+N_GENOME_FULL = 4096
 
 
 def log(msg: str) -> None:
@@ -1210,6 +1228,121 @@ def phase_cpp_referee(aligner, recs):
     return err, (ms, plain_ms, bound), st
 
 
+def phase_genome(gbp: float, syn45_chunk=None):
+    """Genome scale on the card: ``tools/genome_scale.run_genome_scale``
+    at ``gbp`` Gbp, stride 4, N_GENOME_READS reads, no artifact, with an
+    N_GENOME_SPOT-read oracle check, counted; the resident text against
+    the host words; one real chunk of that run through the packed kernel
+    against its plain version bit for bit, on rows whose largest y anchor
+    lies at 2^31 nibbles or past, timed beside its bound and beside
+    syn45's chunk (``syn45_chunk``: phase 4's (ms, plain_ms, bound));
+    N_GENOME_FULL of the reads at full band, with the narrowed run's BAM.
+    -> (the tool's result, (ms, plain_ms, bound) of the chunk)."""
+    import torch
+
+    from thermite_tpu_torch.align.batch import BatchAligner
+    from thermite_tpu_torch.ops.swg_stream import (
+        stream_group,
+        swg_stream,
+        swg_stream_wide,
+    )
+    from thermite_tpu_torch.tools.genome_scale import run_genome_scale
+
+    keep = {}
+    os.makedirs(os.path.join(ROOT, "data", "out"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "data", "out")) as d:
+        reset_launches()
+        res = run_genome_scale(
+            int(gbp * 1e9), N_GENOME_READS, 4, d, device="cuda",
+            artifact=False, n_spot=N_GENOME_SPOT,
+            log=lambda msg: log(f"  {msg}"), keep=keep)
+        launches = read_launches()
+    log(f"  launches {launches}")
+    log(json.dumps(res))
+    check(res["oracle_spot_mismatches"] == 0,
+          f"{res['oracle_spot_mismatches']} reads differ from the oracle")
+    check(res["truth_overlap_primary"] >= 0.99,
+          f"truth overlap {res['truth_overlap_primary']}")
+    check(launches["swg_stream"] >= 1, "the packed kernel never ran")
+    aligner, recs = keep["aligner"], keep["recs"]
+
+    # the resident text == the host words at both ends, around 2^31
+    # nibbles (word 2^28), at every staging-buffer seam and at random
+    from thermite_tpu_torch.device import STAGE_BYTES
+
+    words = aligner._ref_text()[0]
+    lw = words.shape[0]
+    seams = np.arange(STAGE_BYTES // 4, lw, STAGE_BYTES // 4)
+    at = np.unique(np.concatenate([
+        np.arange(4096), lw - 1 - np.arange(4096),
+        (1 << 28) + np.arange(-2048, 2048), seams - 1, seams,
+        np.random.default_rng(1).integers(0, lw, 1 << 16)]))
+    at = at[(at >= 0) & (at < lw)]
+    ref_words = _host_words(aligner._ref_text_host, at)
+    got = words[torch.from_numpy(at).to(words.device)].cpu().numpy()
+    check((got == ref_words).all(),
+          f"{int((got != ref_words).sum())} resident text words differ")
+    log(f"  resident text: {lw} words ({4 * lw / 1e9:.3f} GB) on the card; "
+        f"{len(at)} sampled words == the host's")
+
+    reads = [r[1] for r in recs]
+    aligner._pin_shapes(reads)
+    st, _ = aligner._build_chunk(reads, 0)
+    args, bmax, nsub, meta_np = chunk_launch(aligner, st)
+    y_anchor = 8 * meta_np[:nsub, 0].astype(np.int64) + (meta_np[:nsub, 3] & 7)
+    y_max = int(y_anchor.max())
+    log(f"  chunk: {len(st.meta_all)} problems, {nsub} on the card; largest y "
+        f"anchor {y_max} nibbles (2^31 = {1 << 31}), "
+        f"{int((y_anchor >= 1 << 31).sum())} rows past 2^31")
+    check(y_max >= 1 << 31, "no row of the chunk reaches 2^31 nibbles")
+    kernel = functools.partial(swg_stream, band_max=bmax)
+    nbad, err, ms, plain_ms, got = compare_kernel(args, reps=20, kernel=kernel)
+    log(f"  kernel vs plain on this chunk ({nsub} rows padded to "
+        f"{aligner._NFWD1}): {nbad} differ, max_abs_err {err}, kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.1f} ms")
+    check(nbad == 0, "kernel != plain on the genome chunk")
+    mhz, sms = sm_clock_mhz(lambda: kernel(*args), ms)
+    bound = kernel_bound(args[:6], meta_np, got.shape[1], True, mhz, sms)
+    per_warp = 32 // stream_group(bmax, aligner._XMAX)[0]
+    log_bound("the genome chunk in the pipeline's row order", ms, bound,
+              stream_note(bound, per_warp))
+    if syn45_chunk is not None:
+        s_ms, _, s_b = syn45_chunk
+        log(f"  syn45's chunk (phase 4): {s_ms:.4f} ms, share of bound "
+            f"{100 * s_b['bound_ms'] / s_ms:.1f}%; the genome chunk "
+            f"{ms:.4f} ms, {100 * bound['bound_ms'] / ms:.1f}%")
+    aligner.native.free_chunk(st.native_ch)
+    st.native_ch = None
+
+    sub = recs[:N_GENOME_FULL]
+    narrow = aligner.align_batch_emit(sub, True)
+    wide = BatchAligner(keep["index"], keep["opts"], device="cuda")
+    wide.narrow_band = 0
+    n0 = swg_stream_wide.launches
+    t0 = time.perf_counter()
+    raw = wide.align_batch_emit(sub, True)
+    torch.cuda.synchronize()
+    log(f"  full band on {len(sub)} reads: {swg_stream_wide.launches - n0} "
+        f"launches of the general-band kernel, {len(raw)} BAM bytes in "
+        f"{time.perf_counter() - t0:.2f} s (text upload included), "
+        f"== the narrowed run: {raw == narrow}")
+    check(swg_stream_wide.launches > n0, "the general-band kernel never ran")
+    check(raw == narrow, "full-band BAM differs from the narrowed run's")
+    return res, (ms, plain_ms, bound)
+
+
+def _host_words(text: np.ndarray, at: np.ndarray) -> np.ndarray:
+    """Words ``at`` of the nibble-packed ``text`` (ops/layout.py), each
+    packed from its own eight bytes."""
+    from thermite_tpu_torch.ops.layout import _NIB_LUT, _WPAD
+
+    pos = 8 * at[:, None].astype(np.int64) + np.arange(8) - _WPAD
+    ok = (pos >= 0) & (pos < len(text))
+    codes = np.where(ok, _NIB_LUT[text[np.clip(pos, 0, len(text) - 1)]], 0)
+    return (codes.astype(np.uint32) << (4 * np.arange(8, dtype=np.uint32))
+            ).sum(1, dtype=np.uint32).view(np.int32)
+
+
 def phase_traceback_path(aligner, st):
     """Kernel 4 on its own path, the differential check: the phase 4
     chunk's nontrivial problems at their original band (60), through the
@@ -1705,7 +1838,8 @@ def time_kernels(out_path: str) -> None:
         json.dump(res, f, indent=1)
 
 
-def run(kernels_only: bool = False, mesh_only: bool = False) -> dict:
+def run(kernels_only: bool = False, mesh_only: bool = False,
+        genome_only: bool = False) -> dict:
     import torch
 
     t = time.perf_counter()
@@ -1743,6 +1877,12 @@ def run(kernels_only: bool = False, mesh_only: bool = False) -> dict:
             index, opts, aligner, recs, warm, raw, n3, rate3 = phase_syn45(tmp)
             log("phase 3f: syn45 under a mesh (BatchAligner(mesh=...))")
             phase_mesh(index, opts, aligner, recs, warm, raw, n3, rate3)
+        return {}
+    if genome_only:
+        t = time.perf_counter()
+        log(f"phase 7: genome scale, {GENOME_GBP} Gbp, stride 4")
+        phase_genome(GENOME_GBP)
+        log(f"phase 7 done in {time.perf_counter() - t:.1f} s")
         return {}
 
     t = time.perf_counter()
@@ -1837,6 +1977,12 @@ def run(kernels_only: bool = False, mesh_only: bool = False) -> dict:
                   "CLI SAM differs from the in-memory emit")
             phase_entry_points(opts, aligner, tmp, recs, pairs, header, got)
             log(f"phase 6 done in {time.perf_counter() - t:.1f} s")
+        del index, aligner, recs, pairs
+
+        t = time.perf_counter()
+        log(f"phase 7: genome scale, {GENOME_GBP} Gbp, stride 4")
+        phase_genome(GENOME_GBP, time1)
+        log(f"phase 7 done in {time.perf_counter() - t:.1f} s")
 
     def record(name, source, replaces, worst, timing):
         """One kernel's line: its time, the plain version's and its bound
@@ -1884,6 +2030,10 @@ def main() -> int:
             run(mesh_only=True)
             print("chip_smoke: phases 1, 3 and 3f passed on "
                   f"{torch.cuda.device_count()} card(s)")
+            return 0
+        if "--genome-only" in sys.argv[1:]:
+            run(genome_only=True)
+            print("chip_smoke: phases 1 and 7 passed")
             return 0
         result = run(kernels_only="--kernels-only" in sys.argv[1:])
     except PhaseFailed as e:

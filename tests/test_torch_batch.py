@@ -50,7 +50,7 @@ def synth_case(tmp_path_factory):
 def _pair(index, opts, narrow_band=15):
     """Each side on its own package's Index and AlignOpts."""
     ref = RefBatchAligner(index.ref, opts.ref, backend="pallas",
-                          interpret=True)
+                          interpret=True, use_native=True)
     port = BatchAligner(index.port, opts.port, device="cpu")
     for a in (ref, port):
         a.PROBLEM_BUDGET = BUDGET

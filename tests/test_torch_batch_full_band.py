@@ -74,7 +74,7 @@ def test_narrow_band_knob_is_read(monkeypatch, synth_case):  # noqa: F811
     monkeypatch.setenv("THERMITE_NARROW_BAND", "0")
     port = BatchAligner(index.port, opts.port, device="cpu")
     ref = RefBatchAligner(index.ref, opts.ref, backend="pallas",
-                          interpret=True)
+                          interpret=True, use_native=True)
     assert port.narrow_band == ref.narrow_band == 0
     for a in (ref, port):
         a.PROBLEM_BUDGET = BUDGET

@@ -33,7 +33,8 @@ def _bytes(rng, n):
     return out.astype(np.uint8)
 
 
-@pytest.mark.parametrize("seed,n", [(0, 1), (1, 7), (2, 1000), (3, 4099)])
+@pytest.mark.parametrize("seed,n", [(0, 1), (1, 7), (2, 1000), (3, 4099),
+                                    (4, 100003)])
 def test_nibble_packers_equal(seed, n):
     rng = np.random.default_rng(seed)
     text = _bytes(rng, n)

@@ -31,8 +31,8 @@ torch.set_num_threads(1)
 BUDGET = 256  # problems a chunk: the reads cross several chunks
 BUDGETS = {"narrowed": BUDGET, "full_band": BUDGET, "no_native": 64}
 MODES = {
-    "narrowed": dict(narrow_band=15),
-    "full_band": dict(narrow_band=0),
+    "narrowed": dict(narrow_band=15, use_native=True),
+    "full_band": dict(narrow_band=0, use_native=True),
     "no_native": dict(narrow_band=15, use_native=False),
 }
 # reads a mode runs: the plain kernels are slow at band 60 and on the
@@ -137,7 +137,7 @@ def test_mesh_emit_bytes_equal_single_and_reference(small, fmt_bam):
                 ).align_batch_emit(recs, fmt_bam)
     assert got == want and len(got) > 0
     ref = RefBatchAligner(index.ref, opts.ref, backend="pallas", interpret=True,
-                          mesh=ref_mesh.make_mesh(8))
+                          use_native=True, mesh=ref_mesh.make_mesh(8))
     ref.PROBLEM_BUDGET = BUDGET
     assert ref.align_batch_emit(recs, fmt_bam) == got
 
@@ -152,7 +152,7 @@ def test_mesh_paired_bytes_equal_single_and_reference(small, mode):
     got = meshed.align_paired_emit(pairs, True)
     assert got == want and len(got) > 0 and meshed.stats.chunks > 1
     ref = RefBatchAligner(index.ref, opts.ref, backend="pallas", interpret=True,
-                          mesh=ref_mesh.make_mesh(8))
+                          use_native=True, mesh=ref_mesh.make_mesh(8))
     ref.PROBLEM_BUDGET, ref.narrow_band = 64, MODES[mode]["narrow_band"]
     assert ref.align_paired_emit(pairs, True) == got
 

@@ -55,7 +55,7 @@ def test_paired_emit_equals_reference(genome, opts, fmt_bam, rescue):
     index = genome[3]
     pairs = _tuples(make_mixed_pairs(index.ref))
     ref = RefBatchAligner(index.ref, opts.ref, backend="pallas",
-                          interpret=True)
+                          interpret=True, use_native=True)
     want = ref.align_paired_emit(pairs, fmt_bam, max_insert=1000,
                                  mate_rescue=rescue)
     port = BatchAligner(index.port, opts.port, device="cpu")

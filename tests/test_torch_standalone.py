@@ -8,7 +8,9 @@ A static check reads every source of ``thermite_tpu_torch/`` and
 (an import of either raises ImportError): ``index``, ``align`` with the
 batch engine on ``--device cpu`` (also under ``--mesh 2 --profile``),
 the cpp and oracle engines, ``--paired``, two shards and ``merge``, the
-embedding wrapper, the mesh dry run and the metrics module.  Its
+embedding wrapper, the mesh dry run, the metrics module and the
+genome-scale tool (``tools/genome_scale.py``, which reaches
+``tools/thread_tax.py``) at a small size.  Its
 files must equal, byte for byte, those the reference CLI and wrapper
 write in another subprocess; the C++ engine's library must come from the
 port's own ``_build/`` directory."""
@@ -71,7 +73,8 @@ def test_port_sources_are_found():
                  "io/bam.py", "seed/native.py", "ops/swg_ref.py",
                  "parallel/multihost.py", "testing/synth.py",
                  "parallel/mesh.py", "parallel/dryrun.py",
-                 "testing/alignment_metrics.py", "utils/profile.py"):
+                 "testing/alignment_metrics.py", "utils/profile.py",
+                 "tools/genome_scale.py", "tools/thread_tax.py"):
         assert must in rel, must
     for src in ("thermite_native.cpp", "thermite_objbuild.c"):
         assert os.path.exists(os.path.join(PORT, "csrc", "host", src))
@@ -145,6 +148,11 @@ if port:
     importlib.import_module(pkg + ".parallel.dryrun").dryrun_multichip(2)
     metrics = importlib.import_module(pkg + ".testing.alignment_metrics")
     assert metrics.compare(o("batch.bam"), o("batch.bam")).n_reads == 160
+    # the genome-scale tool and its thread accounting, at a small size
+    gs = importlib.import_module(pkg + ".tools.genome_scale")
+    r = gs.run_genome_scale(300_000, 32, 4, o("genome"), device="cpu",
+                            n_warm=8, n_spot=8, log=lambda msg: None)
+    assert r["oracle_spot_mismatches"] == 0 and r["bam_threads"]
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("thermite_tpu", "jax", "jaxlib")
                     and sys.modules[m] is not None)

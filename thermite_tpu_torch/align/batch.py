@@ -336,8 +336,10 @@ class BatchAligner:
             lw = nib_lw(len(self._ref_text_host))
             nib = getattr(self.index, "text_nib_arr", None)
             if nib is None or len(nib) != lw:
-                nib = pack_text_nib_host(self._ref_text_host)
-            self._ref_text_dev = replicate(self.mesh, nib)
+                with self.stats.stage("text pack"):
+                    nib = pack_text_nib_host(self._ref_text_host)
+            with self.stats.stage("text upload"):
+                self._ref_text_dev = replicate(self.mesh, nib)
         return self._ref_text_dev
 
     def _rows_bucket(self, n: int, sticky: int) -> int:

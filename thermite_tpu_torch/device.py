@@ -32,14 +32,49 @@ def resolve(device="cuda") -> torch.device:
     return dev
 
 
+STAGE_BYTES = 64 << 20  # one pinned staging buffer of a large upload
+
+
 def upload(arr, dev: torch.device) -> torch.Tensor:
     """Host numpy array -> tensor on ``dev``: through pinned memory and
-    without blocking for a card; the array itself for the CPU."""
+    without blocking for a card; the array itself for the CPU.  An array
+    larger than ``STAGE_BYTES`` (a genome-scale text, often a read-only
+    memory map) goes through ``_upload_staged`` instead, and the call
+    returns once it is on the card."""
     import numpy as np
 
+    if dev.type == "cuda" and arr.nbytes > STAGE_BYTES:
+        return _upload_staged(arr, dev)
     t = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
     if dev.type == "cuda":
         if t.numel():
             t = t.pin_memory()
         t = t.to(dev, non_blocking=True)
     return t
+
+
+def _upload_staged(arr, dev: torch.device) -> torch.Tensor:
+    """A C-contiguous host array to the card through two pinned buffers
+    of ``STAGE_BYTES`` in turn: the host fills one while the card copies
+    from the other.  No host copy of the whole array is made (a
+    writeable copy, then a pinned one, would double a 3.2 GB text in
+    host memory)."""
+    import numpy as np
+
+    src = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+    out = torch.empty(src.size, dtype=torch.uint8, device=dev)
+    bufs = [torch.empty(STAGE_BYTES, dtype=torch.uint8).pin_memory()
+            for _ in range(2)]
+    done = [None, None]
+    with torch.cuda.device(dev):
+        for k, a in enumerate(range(0, src.size, STAGE_BYTES)):
+            b, i = min(a + STAGE_BYTES, src.size), k % 2
+            if done[i] is not None:
+                done[i].synchronize()
+            bufs[i][: b - a].numpy()[:] = src[a:b]
+            out[a:b].copy_(bufs[i][: b - a], non_blocking=True)
+            done[i] = torch.cuda.Event()
+            done[i].record()
+        torch.cuda.current_stream(dev).synchronize()
+    return out.view(dtype).view(arr.shape)

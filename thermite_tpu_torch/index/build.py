@@ -76,9 +76,17 @@ def _npz_mmap_views(path: str) -> Optional[Dict[str, np.ndarray]]:
     contiguous span of the file: map them read-only and let the page
     cache serve — lazy, shareable, and no anonymous-page cost.
     Returns None (caller falls back to ``np.load``) for compressed
-    members or any parse surprise."""
+    members or any parse surprise (the latter with a warning on stderr:
+    a genome-scale load then copies tens of GB).  Only numpy's public
+    ``.npy`` header readers are used: newer numpy releases dropped the
+    private one from ``np.lib.format``, and a 23 GB artifact then loaded
+    eagerly without a word."""
     import zipfile
 
+    from numpy.lib import format as npy
+
+    readers = {(1, 0): npy.read_array_header_1_0,
+               (2, 0): npy.read_array_header_2_0}
     try:
         out: Dict[str, np.ndarray] = {}
         with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
@@ -92,10 +100,8 @@ def _npz_mmap_views(path: str) -> Optional[Dict[str, np.ndarray]]:
                 nlen = int.from_bytes(lh[26:28], "little")
                 elen = int.from_bytes(lh[28:30], "little")
                 f.seek(info.header_offset + 30 + nlen + elen)
-                version = np.lib.format.read_magic(f)
-                shape, fortran, dtype = np.lib.format._read_array_header(
-                    f, version
-                )
+                version = npy.read_magic(f)
+                shape, fortran, dtype = readers[version](f)
                 if dtype.hasobject:
                     return None
                 name = info.filename
@@ -106,8 +112,12 @@ def _npz_mmap_views(path: str) -> Optional[Dict[str, np.ndarray]]:
                     shape=shape, order="F" if fortran else "C",
                 )
         return out
-    except Exception:
-        return None  # unexpected layout: eager np.load still works
+    except Exception as e:  # unexpected layout: eager np.load still works
+        import sys
+
+        print(f"warning: {path} is not memory-mapped ({e!r}); its members "
+              "are loaded into memory", file=sys.stderr)
+        return None
 
 
 @dataclass

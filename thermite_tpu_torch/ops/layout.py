@@ -89,14 +89,32 @@ def nib_lw(L: int) -> int:
     return (_WPAD + L + _WPAD + 7) // 8
 
 
-def _pack_nib(src: np.ndarray, L: int, Lw: int, lut: np.ndarray) -> np.ndarray:
-    padded = np.zeros(Lw * 8, np.uint8)
-    padded[_WPAD : _WPAD + L] = src
-    w = np.zeros(Lw, np.uint32)
-    for i in range(8):
-        # per-slice LUT keeps the transient at Lw elements, not 8*Lw
-        w |= lut[padded[i::8]].astype(np.uint32) << np.uint32(4 * i)
-    return w.view(np.int32)
+def _nib_chunks(src: np.ndarray, lut: np.ndarray, chunk_words: int):
+    """Yield the nibble words of ``[0]*_WPAD + src + [0]*pad`` through
+    ``lut``, ``chunk_words`` words at a time (the transients stay at one
+    chunk, not at the eight-fold padded text)."""
+    L = int(src.shape[0])
+    Lw = nib_lw(L)
+    for a in range(0, Lw, chunk_words):
+        b = min(a + chunk_words, Lw)
+        codes = np.zeros((b - a) * 8, np.uint8)  # padding is code 0
+        lo = 8 * a - _WPAD  # source position of the chunk's first code
+        s = max(lo, 0)
+        e = min(8 * b - _WPAD, L)
+        if e > s:
+            codes[s - lo : e - lo] = lut[src[s:e]]
+        # two codes a byte, low nibble first: four bytes are one word
+        # with code i at bits 4i (little-endian)
+        yield (codes[0::2] | (codes[1::2] << 4)).view("<i4")
+
+
+def _pack_nib(src: np.ndarray, lut: np.ndarray) -> np.ndarray:
+    out = np.empty(nib_lw(int(src.shape[0])), np.int32)
+    a = 0
+    for chunk in _nib_chunks(src, lut, 1 << 26):
+        out[a : a + len(chunk)] = chunk
+        a += len(chunk)
+    return out
 
 
 def pack_text_nib_host(text_u8: np.ndarray) -> np.ndarray:
@@ -105,34 +123,19 @@ def pack_text_nib_host(text_u8: np.ndarray) -> np.ndarray:
     Word w holds codes of text_padded[8w .. 8w+7], 4 bits each,
     little-endian (code i at bits 4i..4i+3), where
     text_padded = [0]*_WPAD + text + [0]*pad."""
-    L = int(text_u8.shape[0])
-    return _pack_nib(text_u8, L, nib_lw(L), _NIB_LUT)
+    return _pack_nib(text_u8, _NIB_LUT)
 
 
 def iter_text_nib_words(text_u8: np.ndarray, chunk_words: int = 1 << 26):
     """Yield ``pack_text_nib_host(text_u8)`` in int32 chunks (the
     streaming form that persists a genome-scale packed text)."""
-    L = int(text_u8.shape[0])
-    Lw = nib_lw(L)
-    for a in range(0, Lw, chunk_words):
-        b = min(a + chunk_words, Lw)
-        padded = np.zeros((b - a) * 8, np.uint8)
-        lo = 8 * a - _WPAD  # text coordinate of padded-chunk byte 0
-        s = max(lo, 0)
-        e = min(8 * b - _WPAD, L)
-        if e > s:
-            padded[s - lo : e - lo] = text_u8[s:e]
-        w = np.zeros(b - a, np.uint32)
-        for i in range(8):
-            w |= _NIB_LUT[padded[i::8]].astype(np.uint32) << np.uint32(4 * i)
-        yield w.view(np.int32)
+    return _nib_chunks(text_u8, _NIB_LUT, chunk_words)
 
 
 def pack_reads_nib_host(reads_u8: np.ndarray) -> np.ndarray:
     """Nibble pack of the (rows*RPAD,) flattened read block, same word
     layout as ``pack_text_nib_host`` but through the read code LUT."""
-    L = int(reads_u8.shape[0])
-    return _pack_nib(reads_u8, L, nib_lw(L), _READ_NIB_LUT)
+    return _pack_nib(reads_u8, _READ_NIB_LUT)
 
 
 def expand_stream_hdr(sub2: np.ndarray) -> np.ndarray:

@@ -9,6 +9,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --mesh-only     # phases 1, 3 and 3f: for a host
                                           # with several cards
     python3 chip_smoke.py --genome-only   # phases 1 and 7
+    python3 chip_smoke.py --fuzz-only     # phases 1 and 8
 
 Phases, each printed with its own timing; any failure exits non-zero
 before the result lines are printed:
@@ -113,6 +114,21 @@ before the result lines are printed:
    anchor lies at 2^31 nibbles or past, timed beside its bound and beside
    syn45's chunk of phase 4; 4096 of the reads at full band (the
    general-band kernel must run) with the narrowed run's BAM bytes.
+8. the adversarial parity fuzz (thermite_tpu_torch.tools.fuzz_parity) on
+   phase 3's syn45 index: 2000 mutated 90 bp reads (seed 777) then 2000
+   of 40-150 bp (seed 778), with substitutions, indels and N on both
+   strands and five edge reads each, in one batch, against the
+   sequential oracle (computed once per option set), every read
+   identical, each regime on a fresh aligner: a. -s0 narrowed at the
+   default budget and at 4096 (align_batch and align_batch_emit's SAM;
+   at 4096 after a batch of the 90 bp reads alone, so that the pinned
+   shapes grow between batches);
+   b. -s0 at full band, where the 32 x 8 group of the general-band
+   kernel must be reached; c. -s0 without the C++ engine on 500 + 500 of
+   the reads (forward and general-band kernels); d. -s0.66 narrowed on
+   the long reads.  One real chunk of long reads of a and one of b
+   through the stream kernel == swg_stream_plain bit for bit, timed beside
+   its bound, with the pinned shapes and the group shape printed.
 
 Every timed kernel is printed beside its bound: the larger of its
 integer operations (cells the plain version computes on the same inputs x
@@ -136,6 +152,9 @@ band, in the pipeline's row order and shuffled), into OUT.json.
 kernel_ab.py runs that mode of two checkouts in turns on one card.
 
 --genome-only runs phases 1 and 7 and prints no result lines.
+
+--fuzz-only runs phases 1 and 8 (on its own syn45 index) and prints no
+result lines.
 
 --mesh-only runs phases 1, 3 and 3f and prints no result lines.  On a host
 with several cards phase 3f's first mesh is all of them, so this mode is
@@ -163,6 +182,9 @@ GENOME_GBP = 1.2  # phase 7: a fwd+rc text of 2.4e9 nibbles, past 2^31
 N_GENOME_READS = 16384
 N_GENOME_SPOT = 100
 N_GENOME_FULL = 4096
+N_FUZZ = 2000  # phase 8: of each read length class (seeds 777, 778)
+N_FUZZ_NO_NATIVE = 1000
+FUZZ_BUDGET = 4096
 
 
 def log(msg: str) -> None:
@@ -917,16 +939,14 @@ def timed_runs(run_batch, n_reads, first_s):
 
 def syn45_index(tmp):
     """The 45 Mbp synthetic spliced chromosome, written under `tmp` and
-    indexed, and the options every phase aligns with."""
-    from thermite_tpu_torch.align.driver import AlignOpts
+    indexed, and the options every phase aligns with (the bench's)."""
     from thermite_tpu_torch.index.build import Index
     from thermite_tpu_torch.testing.synth import write_synth_genome
+    from thermite_tpu_torch.tools.workloads import bench_opts
 
     fasta, gtf = write_synth_genome(tmp, SYN_BP, seed=1234, basename="syn45")
     index = Index.create_from_files(fasta, gtf)
-    opts = AlignOpts(min_seed_len=20, min_aln_score_percent=0.0,
-                     min_aln_score=30, intron_mode=True)
-    return index, opts
+    return index, bench_opts()
 
 
 def chunk_launch(aligner, st):
@@ -1167,6 +1187,202 @@ def phase_mesh(index, opts, aligner, recs, warm, raw, base_launches,
               "chunks")
 
 
+def chunk_vs_plain(aligner, st, label):
+    """The stream-kernel launch of the built chunk ``st`` as the pipeline
+    submits it (chunk_launch) against swg_stream_plain on the same CUDA
+    inputs, bit for bit, timed over 20 launches beside its bound, with the
+    pinned shapes and the group shape logged; -> (max_abs_err, (ms,
+    plain_ms, bound), launch args, the wrapper with its band bound,
+    problems a warp)."""
+    from thermite_tpu_torch.ops.swg_stream import stream_group, swg_stream
+
+    args, bmax, nsub, meta_np = chunk_launch(aligner, st)
+    kernel = functools.partial(swg_stream, band_max=bmax)
+    nbad, err, ms, plain_ms, got = compare_kernel(args, reps=20, kernel=kernel)
+    lanes, slots = stream_group(bmax, aligner._XMAX)
+    log(f"  kernel vs plain on {label} ({nsub} rows padded to "
+        f"{aligner._NFWD1}, XMAX {aligner._XMAX} YMAX {aligner._YMAX} "
+        f"SMAX {aligner._SMAX}, band <= {bmax}, group {lanes} x {slots}): "
+        f"{nbad} differ, max_abs_err {err}, kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.1f} ms")
+    check(nbad == 0, f"kernel != plain on {label}")
+    mhz, sms = sm_clock_mhz(lambda: kernel(*args), ms)
+    bound = kernel_bound(args[:6], meta_np, got.shape[1], True, mhz, sms)
+    per_warp = 32 // lanes
+    log_bound(f"{label} in the pipeline's row order", ms, bound,
+              stream_note(bound, per_warp))
+    return err, (ms, plain_ms, bound), args, kernel, per_warp
+
+
+def stream_groups():
+    """A context in which every stream-kernel launch the pipeline makes
+    (through parallel/mesh.py) is counted by its group shape: yields a
+    Counter of (lanes, slots) -> launches."""
+    import collections
+    import contextlib
+
+    import thermite_tpu_torch.parallel.mesh as mesh
+    from thermite_tpu_torch.ops.swg_stream import stream_group
+
+    @contextlib.contextmanager
+    def ctx():
+        seen = collections.Counter()
+        real = mesh.swg_stream
+
+        def counted(*args, band_max, **kw):
+            seen[stream_group(band_max, args[4])] += 1
+            return real(*args, band_max=band_max, **kw)
+
+        mesh.swg_stream = counted
+        try:
+            yield seen
+        finally:
+            mesh.swg_stream = real
+
+    return ctx()
+
+
+def fuzz_run(aligner, reads, want, label):
+    """``reads`` through the fuzz tool's ``fuzz_parity`` on ``aligner``,
+    counted, against the oracle's alignments ``want``: every read must be
+    identical.  -> (launches, group shapes of the stream launches)."""
+    from thermite_tpu_torch.tools.fuzz_parity import fuzz_parity
+
+    reset_launches()
+    with stream_groups() as groups:
+        res = fuzz_parity(aligner, reads, want)
+    launches = read_launches()
+    same = res["identical"]
+    log(f"  {label}: {same}/{len(reads)} identical to the oracle; "
+        f"{res['chunks']} chunks of budget {aligner.PROBLEM_BUDGET}, cert "
+        f"patches {res['cert_patches']}, XMAX {res['XMAX']} YMAX "
+        f"{res['YMAX']} SMAX {res['SMAX']}, stream groups (lanes, slots): "
+        f"launches {dict(groups)}, launches {launches}, wall "
+        f"{res['batch_s']:.3f} s")
+    for k, r, g, w in res["mismatches"]:
+        log(f"    MISMATCH read {k} ({len(r)} bp): {r[:50]!r}\n"
+            f"      got  {g}\n      want {w}")
+    check(same == len(reads), f"{label}: {len(reads) - same} reads differ "
+          "from the oracle")
+    check(res["chunks"] >= 1, f"{label}: no chunk ran")
+    return launches, groups
+
+
+def long_chunk(aligner, reads, label):
+    """One chunk of ``reads`` built and launched on ``aligner`` as its
+    pipeline does, at its pinned shapes, then chunk_vs_plain; -> (max_abs_err,
+    (ms, plain_ms, bound))."""
+    aligner._pin_shapes(reads)
+    st, _ = aligner._build_chunk(reads, 0)
+    aligner._dispatch_forward(st)
+    st.hdr.wait()
+    aligner.native.free_chunk(st.native_ch)
+    st.native_ch = None
+    err, timing, *_ = chunk_vs_plain(aligner, st, label)
+    return err, timing
+
+
+def phase_fuzz(index):
+    """The adversarial parity fuzz on the card (tools/fuzz_parity.py):
+    N_FUZZ mutated 90 bp reads (seed 777) then N_FUZZ of 40-150 bp
+    (seed 778), each set with the five edge reads, against the oracle,
+    each regime on a fresh aligner without a fallback:
+    a. -s0 narrowed (the main path): align_batch at the default budget and
+       at FUZZ_BUDGET (there after a batch of the 90 bp reads alone, so the
+       pinned shapes grow), each read identical, and align_batch_emit's
+       SAM == the oracle's; one real chunk of long reads through the
+       packed kernel == plain, timed;
+    b. -s0 at full band: the general-band kernel, the 32 x 8 group reached;
+       one real chunk of long reads through it == plain, timed;
+    c. -s0 without the C++ engine, on N_FUZZ_NO_NATIVE reads (half of them
+       90 bp, half long): the forward and general-band kernels;
+    d. -s0.66 narrowed on the long reads.
+    -> {regime: launches}."""
+    from thermite_tpu_torch.align.batch import BatchAligner
+    from thermite_tpu_torch.align.driver import OracleAligner
+    from thermite_tpu_torch.tools.fuzz_parity import (fuzz_reads,
+                                                      oracle_alignments,
+                                                      oracle_sam)
+    from thermite_tpu_torch.tools.workloads import bench_opts, first_chrom
+
+    chrom = first_chrom(index)
+    short = fuzz_reads(chrom, N_FUZZ, 777)
+    long = fuzz_reads(chrom, N_FUZZ, 778, long_reads=True)
+    reads = short + long
+    lens = [len(r) for r in long]
+    log(f"  reads: {len(short)} of 90 bp, then {len(long)} of {min(lens)}-"
+        f"{max(lens)} bp (substitutions, indels, N; five edge reads each)")
+    opts0, opts66 = bench_opts(0.0), bench_opts(0.66)
+    t0 = time.perf_counter()
+    seeder = OracleAligner(index, opts0).seeder
+    want0 = oracle_alignments(index, opts0, reads, seeder)
+    t1 = time.perf_counter()
+    want66 = oracle_alignments(index, opts66, long, seeder)
+    t2 = time.perf_counter()
+    log(f"  oracle: {len(reads)} reads at -s0 in {t1 - t0:.1f} s, "
+        f"{len(long)} at -s0.66 in {t2 - t1:.1f} s")
+    out = {}
+
+    for b in (None, FUZZ_BUDGET):
+        aligner = BatchAligner(index, opts0, device="cuda")
+        if b:
+            # a batch pins its shapes up front, so they grow between
+            # batches: the 90 bp reads alone first, then the whole batch
+            aligner.PROBLEM_BUDGET = b
+            fuzz_run(aligner, short, want0[:len(short)],
+                     f"a. -s0 narrowed, budget {b}, the 90 bp reads alone")
+            before = (aligner._XMAX, aligner._YMAX, aligner._SMAX)
+        label = f"a. -s0 narrowed, budget {aligner.PROBLEM_BUDGET}"
+        launches, groups = fuzz_run(aligner, reads, want0, label)
+        if b:
+            after = (aligner._XMAX, aligner._YMAX, aligner._SMAX)
+            log(f"  (XMAX, YMAX, SMAX) grew from {before} to {after}")
+            check(after[0] > before[0], f"{label}: the shapes did not grow")
+        check(launches["swg_stream"] >= aligner.stats.chunks
+              and launches["swg_stream_wide"] == 0,
+              f"{label}: launches {launches}")
+        out[label] = launches
+        recs = [(b"f%d" % i, r, b"I" * len(r)) for i, r in enumerate(reads)]
+        got = aligner.align_batch_emit(recs, False)
+        same = got == oracle_sam(index, recs, want0)
+        log(f"  {label}: align_batch_emit SAM == the oracle's: {same} "
+            f"({len(got)} bytes)")
+        check(same, f"{label}: SAM differs from the oracle's")
+        if not b:
+            err_a = long_chunk(aligner, long,
+                               "a long-read chunk (-s0 narrowed)")[0]
+
+    aligner = BatchAligner(index, opts0, device="cuda")
+    aligner.narrow_band = 0
+    label = "b. -s0 full band"
+    launches, groups = fuzz_run(aligner, reads, want0, label)
+    check(launches["swg_stream_wide"] >= 1, f"{label}: launches {launches}")
+    check(groups[(32, 8)] >= 1, f"{label}: the 32 x 8 group was not reached "
+          f"({dict(groups)})")
+    out[label] = launches
+    err_b = long_chunk(aligner, long, "a long-read chunk (-s0 full band)")[0]
+
+    half = N_FUZZ_NO_NATIVE // 2
+    sub = reads[:half] + long[:half]
+    sub_want = want0[:half] + want0[len(short):len(short) + half]
+    aligner = BatchAligner(index, opts0, device="cuda", use_native=False)
+    label = "c. -s0 without the C++ engine"
+    launches, _ = fuzz_run(aligner, sub, sub_want, label)
+    check(launches["swg_forward"] >= aligner.stats.chunks
+          and launches["swg_stream_wide"] >= aligner.stats.chunks,
+          f"{label}: launches {launches}")
+    out[label] = launches
+
+    aligner = BatchAligner(index, opts66, device="cuda")
+    label = "d. -s0.66 narrowed, long reads"
+    launches, _ = fuzz_run(aligner, long, want66, label)
+    check(launches["swg_stream"] >= aligner.stats.chunks,
+          f"{label}: launches {launches}")
+    out[label] = launches
+    log(f"  long-read chunks bit-exact: max_abs_err {max(err_a, err_b)}")
+    return out
+
+
 def phase_cpp_referee(aligner, recs):
     """One syn45 chunk: kernel == plain on its real rows (timed), and
     every certified row == the C++ full-band scalar SWG.  -> (max_abs_err,
@@ -1175,7 +1391,6 @@ def phase_cpp_referee(aligner, recs):
     import torch
 
     from thermite_tpu_torch.ops.layout import expand_stream_hdr
-    from thermite_tpu_torch.ops.swg_stream import stream_group, swg_stream
 
     reads = [r[1] for r in recs]
     aligner._pin_shapes(reads)
@@ -1201,24 +1416,13 @@ def phase_cpp_referee(aligner, recs):
         f"(C++ referee {cpp_s:.1f} s)")
     check(differ == 0, f"{differ} certified rows differ from the C++ referee")
 
-    # the same launch again, against the plain version, timed
-    args, bmax, nsub, meta_np = chunk_launch(aligner, st)
+    # the same launch again, against the plain version, timed; then what
+    # the ragged warps cost: the pipeline's row order (by ylen) against
+    # the same rows shuffled
+    err, (ms, plain_ms, bound), args, kernel, per_warp = chunk_vs_plain(
+        aligner, st, "the syn45 chunk")
     meta = args[3]
-    kernel = functools.partial(swg_stream, band_max=bmax)
-    nbad, err, ms, plain_ms, got = compare_kernel(args, reps=20, kernel=kernel)
-    log(f"  kernel vs plain on this chunk ({nsub} rows padded to "
-        f"{aligner._NFWD1}, XMAX {aligner._XMAX} YMAX {aligner._YMAX} "
-        f"SMAX {aligner._SMAX}): {nbad} differ, max_abs_err {err}, "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
-    check(nbad == 0, "kernel != plain on the syn45 chunk")
-    # its bound, and what the ragged warps cost: the pipeline's row order
-    # (by ylen) against the same rows shuffled
-    mhz, sms = sm_clock_mhz(lambda: kernel(*args), ms)
-    bound = kernel_bound(args[:6], meta_np, got.shape[1], True, mhz, sms)
-    per_warp = 32 // stream_group(bmax, aligner._XMAX)[0]
-    log_bound("the syn45 chunk in the pipeline's row order", ms, bound,
-              stream_note(bound, per_warp))
-    perm = torch.from_numpy(np.random.default_rng(0).permutation(len(meta_np)))
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(len(meta)))
     shuffled = (*args[:3], meta[perm.to(meta.device)].contiguous(), *args[4:])
     _, _, ms_sh, _, _ = compare_kernel(shuffled, reps=20, kernel=kernel)
     log(f"  the same rows shuffled: kernel {ms_sh:.4f} ms ({ms_sh / ms:.2f} x), "
@@ -1241,11 +1445,7 @@ def phase_genome(gbp: float, syn45_chunk=None):
     import torch
 
     from thermite_tpu_torch.align.batch import BatchAligner
-    from thermite_tpu_torch.ops.swg_stream import (
-        stream_group,
-        swg_stream,
-        swg_stream_wide,
-    )
+    from thermite_tpu_torch.ops.swg_stream import swg_stream_wide
     from thermite_tpu_torch.tools.genome_scale import run_genome_scale
 
     keep = {}
@@ -1295,17 +1495,7 @@ def phase_genome(gbp: float, syn45_chunk=None):
         f"anchor {y_max} nibbles (2^31 = {1 << 31}), "
         f"{int((y_anchor >= 1 << 31).sum())} rows past 2^31")
     check(y_max >= 1 << 31, "no row of the chunk reaches 2^31 nibbles")
-    kernel = functools.partial(swg_stream, band_max=bmax)
-    nbad, err, ms, plain_ms, got = compare_kernel(args, reps=20, kernel=kernel)
-    log(f"  kernel vs plain on this chunk ({nsub} rows padded to "
-        f"{aligner._NFWD1}): {nbad} differ, max_abs_err {err}, kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.1f} ms")
-    check(nbad == 0, "kernel != plain on the genome chunk")
-    mhz, sms = sm_clock_mhz(lambda: kernel(*args), ms)
-    bound = kernel_bound(args[:6], meta_np, got.shape[1], True, mhz, sms)
-    per_warp = 32 // stream_group(bmax, aligner._XMAX)[0]
-    log_bound("the genome chunk in the pipeline's row order", ms, bound,
-              stream_note(bound, per_warp))
+    _, (ms, plain_ms, bound), *_ = chunk_vs_plain(aligner, st, "the genome chunk")
     if syn45_chunk is not None:
         s_ms, _, s_b = syn45_chunk
         log(f"  syn45's chunk (phase 4): {s_ms:.4f} ms, share of bound "
@@ -1424,24 +1614,6 @@ def phase_traceback_path(aligner, st):
     return launches["swg_traceback"], launches["swg_traceback_dense"]
 
 
-def paired_workload(index, n_pairs, seed=51):
-    """The paired workload of bench.py:138-166: FR pairs of 90 bp mates
-    from 300 bp fragments of the first chromosome, quality I."""
-    from thermite_tpu_torch.io.fastx import revcomp
-
-    ref = index.refs[0]
-    chrom = index.seq[ref.start_idx : ref.end_idx - 1]
-    rng = np.random.default_rng(seed)
-    q = b"I" * 90
-    pairs = []
-    for i in range(n_pairs):
-        p = int(rng.integers(0, len(chrom) - 300))
-        frag = chrom[p : p + 300]
-        pairs.append(((b"p%d" % i, frag[:90], q),
-                      (b"p%d" % i, revcomp(frag[-90:]), q)))
-    return pairs
-
-
 def mixed_pairs(index, n=240, seed=11):
     """tests/test_paired_emit.py::make_mixed_pairs on this genome: FR
     pairs, every sixth with a junk mate (unmapped, not rescuable), every
@@ -1500,10 +1672,13 @@ def phase_paired(index, opts, aligner):
     """The paired syn45 workload through align_paired_emit (BAM): counted
     launches, proper pairs, reads/s (both mates) over 5 runs; the first
     2000 pairs and a mixed set (junk and rescuable mates, rescue on)
-    equal the referee.  -> (pairs, BAM of the first 2000 pairs)."""
+    equal the referee.  -> (pairs, BAM of the first 2000 pairs).  The pairs
+    are bench.py:138-166's (tools/workloads.py::fr_pairs)."""
     import torch
 
-    pairs = paired_workload(index, N_READS // 2)
+    from thermite_tpu_torch.tools.workloads import first_chrom, fr_pairs
+
+    pairs = fr_pairs(first_chrom(index), N_READS // 2)
     aligner.align_paired_emit(pairs[:1024], True)  # warm-up
     torch.cuda.synchronize()
     aligner.stats.reset()
@@ -1580,21 +1755,14 @@ def phase_cpp(index, opts, aligner, recs, pairs, paired_sub):
 
 def phase_oracle(index, opts, aligner, recs):
     """SAM records of the first reads == the sequential oracle's."""
-    from thermite_tpu_torch.align.driver import align_read
-    from thermite_tpu_torch.io.sam import aln_to_sam_record, unmapped_sam_record
+    from thermite_tpu_torch.tools.fuzz_parity import oracle_alignments, oracle_sam
 
     sub = recs[:N_ORACLE]
     got = aligner.align_batch_emit(sub, False)
-    lines = []
-    for name, seq, qual in sub:
-        alns = align_read(index, seq, opts, aligner.seeder)
-        if not alns:
-            lines.append(unmapped_sam_record(name, seq, qual).to_line())
-        for i, aln in enumerate(alns):
-            lines.append(aln_to_sam_record(index, name, seq, qual, aln,
-                                           len(alns), i + 1).to_line())
-    want = "".join(line + "\n" for line in lines).encode()
-    log(f"  {len(sub)} reads: {len(lines)} SAM records, port == oracle: "
+    want = oracle_sam(index, sub, oracle_alignments(
+        index, opts, [r[1] for r in sub], aligner.seeder))
+    n_lines = want.count(b"\n")
+    log(f"  {len(sub)} reads: {n_lines} SAM records, port == oracle: "
         f"{got == want}")
     check(got == want, "SAM records differ from the oracle's")
 
@@ -1838,8 +2006,16 @@ def time_kernels(out_path: str) -> None:
         json.dump(res, f, indent=1)
 
 
+def run_fuzz(index) -> None:
+    t = time.perf_counter()
+    log(f"phase 8: adversarial parity fuzz on syn45 ({N_FUZZ} reads of 90 bp "
+        f"and {N_FUZZ} of 40-150 bp against the oracle, four regimes)")
+    phase_fuzz(index)
+    log(f"phase 8 done in {time.perf_counter() - t:.1f} s")
+
+
 def run(kernels_only: bool = False, mesh_only: bool = False,
-        genome_only: bool = False) -> dict:
+        genome_only: bool = False, fuzz_only: bool = False) -> dict:
     import torch
 
     t = time.perf_counter()
@@ -1883,6 +2059,15 @@ def run(kernels_only: bool = False, mesh_only: bool = False,
         log(f"phase 7: genome scale, {GENOME_GBP} Gbp, stride 4")
         phase_genome(GENOME_GBP)
         log(f"phase 7 done in {time.perf_counter() - t:.1f} s")
+        return {}
+    if fuzz_only:
+        os.makedirs(os.path.join(ROOT, "data", "out"), exist_ok=True)
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(ROOT, "data", "out")) as tmp:
+            t = time.perf_counter()
+            index, _ = syn45_index(tmp)
+            log(f"  syn45 indexed in {time.perf_counter() - t:.1f} s")
+        run_fuzz(index)
         return {}
 
     t = time.perf_counter()
@@ -1977,7 +2162,9 @@ def run(kernels_only: bool = False, mesh_only: bool = False,
                   "CLI SAM differs from the in-memory emit")
             phase_entry_points(opts, aligner, tmp, recs, pairs, header, got)
             log(f"phase 6 done in {time.perf_counter() - t:.1f} s")
-        del index, aligner, recs, pairs
+        del aligner, recs, pairs
+        run_fuzz(index)
+        del index
 
         t = time.perf_counter()
         log(f"phase 7: genome scale, {GENOME_GBP} Gbp, stride 4")
@@ -2034,6 +2221,10 @@ def main() -> int:
         if "--genome-only" in sys.argv[1:]:
             run(genome_only=True)
             print("chip_smoke: phases 1 and 7 passed")
+            return 0
+        if "--fuzz-only" in sys.argv[1:]:
+            run(fuzz_only=True)
+            print("chip_smoke: phases 1 and 8 passed")
             return 0
         result = run(kernels_only="--kernels-only" in sys.argv[1:])
     except PhaseFailed as e:

@@ -47,9 +47,12 @@
 // columns; the batch pipeline submits rows ordered by column count, so
 // neighbours end close together.  Warps per block follow from the shared
 // memory of a warp's problems so that every shape the reference accepts
-// (XMAX, YMAX <= 512) fits the opt-in limit.  At 16 and 32 slots a lane
-// the per-slot arrays exceed the register budget and spill (see the build
-// log); no path of the pipeline reaches them.
+// (XMAX, YMAX <= 512) fits the opt-in limit.  Registers grow with the
+// slots a lane (80 at 32 x 8, 128 at 32 x 16, 254 at 32 x 32 with sm_90a;
+// no shape spills, see the build log).  The pipeline reaches 32 x 8 at
+// full band and -s0 once reads pass 96 bp (a 150 bp read has band 120 and
+// 161 slots at XMAX 160); 32 x 16 needs reads above 224 bp (XMAX 256),
+// 32 x 32 above 480 bp.
 
 #include "swg_dp.cuh"
 

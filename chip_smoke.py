@@ -10,6 +10,7 @@ Run from the repository root on a machine with one NVIDIA H100:
                                           # with several cards
     python3 chip_smoke.py --genome-only   # phases 1 and 7
     python3 chip_smoke.py --fuzz-only     # phases 1 and 8
+    python3 chip_smoke.py --bench-only    # phases 1 and 9: the port's bench
 
 Phases, each printed with its own timing; any failure exits non-zero
 before the result lines are printed:
@@ -129,6 +130,16 @@ before the result lines are printed:
    the long reads.  One real chunk of long reads of a and one of b
    through the stream kernel == swg_stream_plain bit for bit, timed beside
    its bound, with the pinned shapes and the group shape printed.
+9. (after phase 6, before phase 8) the port's bench
+   (thermite_tpu_torch/bench.py, the counterpart of the repository's
+   bench.py) in this process on phase 3's syn45 index, at
+   the bench's sizes (49152 reads a trial, 5 trials; the C++ engine on 1
+   thread, the oracle, BAM emit and paired emit): its JSON line, printed
+   on a line of its own, has the 21 keys of the repository bench's line,
+   positive syn45 readings, vs_cpp_baseline == value /
+   syn45_cpp_1core_reads_per_s to its rounding (0.005), and the packed
+   kernel launched in its trials; the chrM keys are null without the
+   chrM FASTA.
 
 Every timed kernel is printed beside its bound: the larger of its
 integer operations (cells the plain version computes on the same inputs x
@@ -155,6 +166,11 @@ kernel_ab.py runs that mode of two checkouts in turns on one card.
 
 --fuzz-only runs phases 1 and 8 (on its own syn45 index) and prints no
 result lines.
+
+--bench-only runs phase 1, then phase 9 as a user runs it: python -m
+thermite_tpu_torch.bench in a subprocess, which builds or loads
+data/out/bench_syn45.npz; its exit code must be 0 and its last line the
+bench's line, checked as above.  It prints no result lines.
 
 --mesh-only runs phases 1, 3 and 3f and prints no result lines.  On a host
 with several cards phase 3f's first mesh is all of them, so this mode is
@@ -2006,6 +2022,59 @@ def time_kernels(out_path: str) -> None:
         json.dump(res, f, indent=1)
 
 
+def check_bench_line(line: dict) -> None:
+    """The bench's line: the repository bench's 21 keys in its order,
+    positive syn45 readings, vs_cpp_baseline == value /
+    syn45_cpp_1core_reads_per_s within 0.005 (it is rounded to 0.01)."""
+    from thermite_tpu_torch import bench
+
+    keys = list(bench.SYN45_KEYS + bench.CHRM_KEYS)
+    check(len(keys) == 21 and list(line) == keys,
+          f"bench line keys {list(line)}, want {keys}")
+    for key in bench.SYN45_KEYS:
+        if key not in ("metric", "unit"):
+            check(np.all(np.asarray(line[key]) > 0), f"bench {key} {line[key]}")
+    ratio = line["value"] / line["syn45_cpp_1core_reads_per_s"]
+    check(abs(line["vs_cpp_baseline"] - ratio) <= 0.005 + 1e-9,
+          f"vs_cpp_baseline {line['vs_cpp_baseline']}, value / cpp {ratio}")
+
+
+def phase_bench(index, opts) -> None:
+    """Phase 9: bench.run and bench.chrm in this process on phase 3's
+    index, launches counted from 0 around them."""
+    from thermite_tpu_torch import bench
+
+    reset_launches()
+    line = bench.run(index, opts, "cuda")
+    line.update(bench.chrm("cuda"))
+    launches = read_launches()
+    log(f"  launches {launches}")
+    check(launches["swg_stream"] > 0, "the bench launched no swg_stream")
+    check_bench_line(line)
+    log(json.dumps(line))
+
+
+def phase_bench_cli() -> None:
+    """Phase 9 as a user runs it: ``python -m thermite_tpu_torch.bench``
+    in a subprocess (syn45 built or loaded from data/out/)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    p = subprocess.run([sys.executable, "-m", "thermite_tpu_torch.bench"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=900)
+    for line in p.stderr.splitlines():
+        log(f"  | {line}")
+    lines = p.stdout.strip().splitlines()
+    check(p.returncode == 0 and bool(lines),
+          f"python -m thermite_tpu_torch.bench exited {p.returncode}")
+    try:
+        line = json.loads(lines[-1])
+    except json.JSONDecodeError:
+        raise PhaseFailed(f"the bench's last line is no JSON: {lines[-1]!r}")
+    check_bench_line(line)
+    log(lines[-1])
+
+
 def run_fuzz(index) -> None:
     t = time.perf_counter()
     log(f"phase 8: adversarial parity fuzz on syn45 ({N_FUZZ} reads of 90 bp "
@@ -2015,7 +2084,8 @@ def run_fuzz(index) -> None:
 
 
 def run(kernels_only: bool = False, mesh_only: bool = False,
-        genome_only: bool = False, fuzz_only: bool = False) -> dict:
+        genome_only: bool = False, fuzz_only: bool = False,
+        bench_only: bool = False) -> dict:
     import torch
 
     t = time.perf_counter()
@@ -2053,6 +2123,12 @@ def run(kernels_only: bool = False, mesh_only: bool = False,
             index, opts, aligner, recs, warm, raw, n3, rate3 = phase_syn45(tmp)
             log("phase 3f: syn45 under a mesh (BatchAligner(mesh=...))")
             phase_mesh(index, opts, aligner, recs, warm, raw, n3, rate3)
+        return {}
+    if bench_only:
+        t = time.perf_counter()
+        log("phase 9: the bench (python -m thermite_tpu_torch.bench)")
+        phase_bench_cli()
+        log(f"phase 9 done in {time.perf_counter() - t:.1f} s")
         return {}
     if genome_only:
         t = time.perf_counter()
@@ -2163,6 +2239,10 @@ def run(kernels_only: bool = False, mesh_only: bool = False,
             phase_entry_points(opts, aligner, tmp, recs, pairs, header, got)
             log(f"phase 6 done in {time.perf_counter() - t:.1f} s")
         del aligner, recs, pairs
+        t = time.perf_counter()
+        log("phase 9: the bench (thermite_tpu_torch.bench.run) on syn45")
+        phase_bench(index, opts)
+        log(f"phase 9 done in {time.perf_counter() - t:.1f} s")
         run_fuzz(index)
         del index
 
@@ -2225,6 +2305,10 @@ def main() -> int:
         if "--fuzz-only" in sys.argv[1:]:
             run(fuzz_only=True)
             print("chip_smoke: phases 1 and 8 passed")
+            return 0
+        if "--bench-only" in sys.argv[1:]:
+            run(bench_only=True)
+            print("chip_smoke: phases 1 and 9 passed")
             return 0
         result = run(kernels_only="--kernels-only" in sys.argv[1:])
     except PhaseFailed as e:

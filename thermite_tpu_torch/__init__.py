@@ -10,5 +10,7 @@ writers (``io/``), seeding (``seed/``), the sequential oracle
 (``align/driver.py``, ``ops/swg_ref.py``), pairing, shards and merge,
 and the C++ host engine (``csrc/host/``, built with g++ into ``_build/``
 at first use).  Artifacts (``.tai.npz``) and output shards are
-interchangeable with the reference package's.
+interchangeable with the reference package's.  ``python -m
+thermite_tpu_torch.bench`` prints the repository bench's line from the
+card.
 """

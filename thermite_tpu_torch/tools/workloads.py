@@ -1,5 +1,6 @@
-"""The workloads the measurement tools run: the repository bench's data
-builders (``bench.py``), not its timing harness.
+"""The workloads the measurement tools run: the reads, pairs and index of
+the repository bench (``bench.py``), whose timing harness is
+``thermite_tpu_torch/bench.py``.
 
 - ``make_reads``: 90 bp windows of a chromosome with 0-3 substitutions,
   both strands (``read_draws``: the same rng draws as ``bench.make_reads``,

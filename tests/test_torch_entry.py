@@ -417,25 +417,37 @@ def test_profile_writes_a_trace_and_keeps_the_bytes(synth, paired):
     with open(traces[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "cpu_op" for e in events)
+    # the program's spans, each with its chunk's number
+    chunks = {}
+    for e in events:
+        if e.get("name") in ("build", "dispatch", "finalize/emit"):
+            chunks.setdefault(e["name"], set()).add(e["args"]["chunk"])
+    assert set(chunks) == {"build", "dispatch", "finalize/emit"}
+    assert chunks["build"] == chunks["dispatch"] == chunks["finalize/emit"]
+    assert all(isinstance(c, int) and c >= 0 for c in chunks["build"])
 
 
 def test_device_busy_is_per_card():
     """``device_busy`` unions the device intervals of each card apart:
     spans that overlap on one card count once, spans of two cards at the
-    same time count on both, and host events count on none."""
+    same time count on both, and host events count on none; nor does a
+    user annotation on a card's timeline (a span over the work it
+    launched)."""
     from types import SimpleNamespace as NS
 
     from torch.autograd import DeviceType
 
     from thermite_tpu_torch.utils.profile import device_busy
 
-    def ev(card, start, end, name, kind=DeviceType.CUDA):
+    def ev(card, start, end, name, kind=DeviceType.CUDA, note=False):
         return NS(device_type=kind, device_index=card, name=name,
-                  time_range=NS(start=start, end=end))
+                  time_range=NS(start=start, end=end),
+                  is_user_annotation=note)
 
     prof = NS(events=lambda: [
         ev(0, 0, 10, "k"), ev(0, 5, 12, "copy"), ev(0, 20, 21, "k"),
-        ev(1, 0, 10, "k"), ev(0, 0, 100, "host op", DeviceType.CPU)])
+        ev(1, 0, 10, "k"), ev(0, 0, 100, "host op", DeviceType.CPU),
+        ev(0, 30, 90, "build", note=True)])
     busy, by_name = device_busy(prof)
     assert busy == {0: 13, 1: 10}
     assert by_name == {"k": (21, 3), "copy": (7, 1)}

@@ -1,0 +1,226 @@
+"""The port's span recorder (``utils/stats.py::PipelineStats``) on the CPU.
+
+Spans nest under path keys with their CPU seconds at the top level; a
+span's self time is never below 0; ``reset`` clears what was recorded;
+``dsync`` and ``cpu`` name no span.  The main path (``align_batch_emit``
+with the C++ engine) records the stages it had and the spans inside
+them, each parent holding its children.  Under ``torch.profiler`` each
+span is an event named by its path; with no profiler recording a span
+makes no call into the profiler."""
+
+import time
+
+import pytest
+import torch
+
+from thermite_tpu_torch.align.batch import BatchAligner
+from thermite_tpu_torch.align.driver import AlignOpts
+from thermite_tpu_torch.index.build import Index
+from thermite_tpu_torch.testing.synth import make_truth_reads, write_synth_genome
+from thermite_tpu_torch.utils.stats import PipelineStats
+
+torch.set_num_threads(1)
+
+OLD_KEYS = {"build", "arbitrate", "finalize", "arbitrate/dsync",
+            "finalize/dsync", "text pack", "text upload"}
+NEW_KEYS = {"dispatch", "build/seed", "finalize/emit", "arbitrate/patch",
+            "prepare", "join", "build/cpu", "dispatch/cpu", "arbitrate/cpu",
+            "finalize/cpu", "prepare/cpu", "join/cpu", "text pack/cpu",
+            "text upload/cpu"}
+
+
+def _spin(s: float) -> None:
+    end = time.perf_counter() + s
+    while time.perf_counter() < end:
+        pass
+
+
+def test_nested_spans_record_under_paths():
+    st = PipelineStats()
+    with st.stage("build"):
+        with st.stage("seed"):
+            with st.stage("probe"):
+                pass
+        with st.stage("seed"):
+            pass
+    with st.stage("finalize"):
+        with st.dsync("finalize"):
+            pass
+        with st.stage("emit"):
+            pass
+    assert set(st.stage_s) == {
+        "build", "build/cpu", "build/seed", "build/seed/probe",
+        "finalize", "finalize/cpu", "finalize/dsync", "finalize/emit"}
+    assert st.spans() == ["build", "build/seed", "build/seed/probe",
+                          "finalize", "finalize/emit"]
+    # a span opened after its parent closed is top-level again
+    with st.stage("seed"):
+        pass
+    assert "seed" in st.stage_s and "seed/cpu" in st.stage_s
+
+
+def test_self_time_never_below_zero():
+    st = PipelineStats()
+    for _ in range(50):
+        with st.stage("arbitrate"):
+            with st.dsync("arbitrate"):
+                _spin(1e-5)
+            with st.stage("patch"):
+                _spin(1e-5)
+                with st.stage("row"):
+                    _spin(1e-5)
+    for path in st.spans():
+        assert st.self_s(path) >= 0.0
+    s = st.stage_s
+    assert s["arbitrate"] >= s["arbitrate/dsync"] + s["arbitrate/patch"]
+    assert st.self_s("arbitrate/patch/row") == s["arbitrate/patch/row"]
+    want = s["arbitrate/patch"] - s["arbitrate/patch/row"]
+    assert st.self_s("arbitrate/patch") == pytest.approx(want, abs=1e-12)
+
+
+def test_cpu_seconds_on_top_level_spans_only():
+    st = PipelineStats()
+    with st.stage("build"):
+        with st.stage("seed"):
+            _spin(0.02)
+    assert "build/cpu" in st.stage_s
+    assert not [k for k in st.stage_s if k.count("/") > 1
+                or (k.endswith("/cpu") and k != "build/cpu")]
+    # the spin is CPU time of the process, counted at the top level
+    assert 0.0 < st.stage_s["build/cpu"]
+    assert st.split() == {"build": st.stage_s["build"]}
+
+
+def test_reset_clears_everything():
+    st = PipelineStats()
+    with st.stage("finalize"):
+        with st.dsync("finalize"):
+            pass
+    st.reads = st.chunks = st.problems = st.tasks = st.winners = 3
+    st.dp_cells = st.dp_cells_ref = st.cert_patches = 3
+    st.stream_fallbacks = st.emit_cpp_chunks = st.spliced_pairs = 3
+    st.emit_py_chunks = 3
+    t0 = st._t0
+    st.reset()
+    fresh = PipelineStats()
+    for name in ("reads", "chunks", "problems", "tasks", "winners",
+                 "dp_cells", "dp_cells_ref", "cert_patches",
+                 "stream_fallbacks", "emit_cpp_chunks", "spliced_pairs",
+                 "emit_py_chunks"):
+        assert getattr(st, name) == getattr(fresh, name) == 0, name
+    assert dict(st.stage_s) == {} and st.spans() == []
+    assert st._t0 > t0
+    with st.stage("build"):  # the recorder works on after a reset
+        pass
+    assert set(st.stage_s) == {"build", "build/cpu"}
+
+
+@pytest.mark.parametrize("name", ["dsync", "cpu", "build/seed"])
+def test_reserved_names_are_refused(name):
+    st = PipelineStats()
+    with pytest.raises(ValueError):
+        with st.stage(name):
+            pass
+    with st.stage("build"):
+        with pytest.raises(ValueError):
+            with st.stage(name):
+                pass
+    assert set(st.stage_s) == {"build", "build/cpu"}
+
+
+@pytest.fixture(scope="module")
+def aligner_case(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("spans"))
+    fasta, gtf = write_synth_genome(d, 60_000, seed=43, basename="sp")
+    index = Index.create_from_files(fasta, gtf)
+    index.build_seed_table(stride=1)
+    opts = AlignOpts(min_seed_len=20, min_aln_score_percent=0.0,
+                     min_aln_score=30, intron_mode=True)
+    reads = make_truth_reads(index, 200, seed=9)
+    recs = [(n.encode(), s, b"I" * len(s)) for n, s in reads]
+    return index, opts, recs
+
+
+def _aligner(case):
+    index, opts, recs = case
+    a = BatchAligner(index, opts, device="cpu")
+    a.PROBLEM_BUDGET = 256
+    a.narrow_band = 4  # certificate failures, so patches run
+    return a, recs
+
+
+def test_main_path_records_old_and_new_keys(aligner_case):
+    a, recs = _aligner(aligner_case)
+    raw = a.align_batch_emit(recs, True)
+    assert raw and a.native is not None and a.stats.cert_patches > 0
+    st = a.stats.stage_s
+    want = OLD_KEYS | NEW_KEYS
+    if "text pack" not in st:  # the artifact carried the packed text
+        want -= {"text pack", "text pack/cpu"}
+    assert set(st) == want
+    for path in a.stats.spans():
+        kids = [k for k in st if k.rpartition("/")[0] == path
+                and not k.endswith("/cpu")]
+        assert sum(st[k] for k in kids) <= st[path]
+    assert a.stats.chunks > 2
+    # a second batch: the text is resident, its keys do not grow
+    text = st["text upload"]
+    a.align_batch_emit(recs[:50], True)
+    assert st["text upload"] == text
+    assert a.stats.split().keys() == {
+        "build", "dispatch", "arbitrate host", "arbitrate device wait+d2h",
+        "finalize host", "finalize device wait+d2h", "prepare", "join",
+        "text upload", *({"text pack"} & set(st))}
+    report = a.stats.report()
+    for line in ("  build\t", "    seed\t", "  dispatch\t", "    patch\t",
+                 "    emit\t", "CPU/wall"):
+        assert line in report
+
+
+def test_spans_are_profiler_events_named_by_path(aligner_case):
+    from torch.profiler import ProfilerActivity, profile
+
+    a, recs = _aligner(aligner_case)
+    a.align_batch_emit(recs[:20], True)  # the resident text, before
+    a.stats.reset()
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        a.align_batch_emit(recs, True)
+    events = [e for e in prof.events() if e.name in
+              ("build", "build/seed", "dispatch", "arbitrate",
+               "arbitrate/patch", "arbitrate/dsync", "finalize",
+               "finalize/emit", "finalize/dsync")]
+    names = {e.name for e in events}
+    assert names == {"build", "build/seed", "dispatch", "arbitrate",
+                     "arbitrate/patch", "arbitrate/dsync", "finalize",
+                     "finalize/emit", "finalize/dsync"}
+    assert sum(e.name == "build" for e in events) == a.stats.chunks
+    # the chunk's number rides each span; one chunk's spans share it
+    by_chunk = {}
+    for e in events:
+        by_chunk.setdefault(e.kwinputs["chunk"], set()).add(e.name)
+    assert len(by_chunk) == a.stats.chunks
+    for names in by_chunk.values():
+        assert {"build", "build/seed", "dispatch", "arbitrate", "finalize",
+                "finalize/emit"} <= names
+
+
+def test_no_profiler_call_without_a_profiler(aligner_case, monkeypatch):
+    import torch.autograd.profiler as autograd_profiler
+    import torch.profiler
+
+    def boom(*a, **k):
+        raise AssertionError("a profiler call with no profiler recording")
+
+    monkeypatch.setattr(torch.profiler, "record_function", boom)
+    monkeypatch.setattr(autograd_profiler, "record_function", boom)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", boom)
+    a, recs = _aligner(aligner_case)
+    assert a.align_batch_emit(recs[:60], True)
+    st = PipelineStats()
+    with st.stage("build"):
+        with st.stage("seed"):
+            pass
+        with st.dsync("build"):
+            pass
+    assert "build/seed" in st.stage_s

@@ -167,6 +167,7 @@ class _ChunkState:
     finalize."""
 
     reads: List[bytes]
+    no: int = -1  # the chunk's number in the aligner's life
     # Python build (no C++ engine)
     problems: _Problems = field(default_factory=_Problems)
     tasks: List["_Task"] = field(default_factory=list)
@@ -317,6 +318,7 @@ class BatchAligner:
         self._NFWD1 = self._NFWD = self._NTB = 0
         self._seg = None  # sticky lane width class (_packed_seg)
         self._est_chunk_reads = self.PROBLEM_BUDGET // 4
+        self._chunks_built = 0
         self._ref_cols_c = None
 
         eng = host_engine(index, opts, use_native)
@@ -364,7 +366,10 @@ class BatchAligner:
         rows for ``fmt_bam`` False / True / 2; no header) in input order,
         emitted by the C++ engine.  A chunk where a stream needed the
         host fallback, and every chunk without the C++ engine, is
-        serialized by the Python writers instead, with the same bytes."""
+        serialized by the Python writers instead, with the same bytes.
+        The C++ emit of a chunk is the span ``finalize/emit``; the
+        batch's sequence list is in the span ``prepare``, the join of its
+        chunks' bytes the span ``join``."""
         chunks: List[bytes] = []
 
         def fin(st, start):
@@ -377,12 +382,13 @@ class BatchAligner:
                 return
             tb_out = self._take_tb(st)
             self.native.finalize(st.native_ch, tb_out, st.meta_all)
-            sl = recs[start : start + len(st.reads)]
-            raw = self.native.emit_chunk(
-                st.native_ch, fmt_bam,
-                [r[0] for r in sl], [r[1] for r in sl], [r[2] or b"" for r in sl],
-                strip_tags=strip_tags,
-            )
+            with self.stats.stage("emit"):
+                sl = recs[start : start + len(st.reads)]
+                raw = self.native.emit_chunk(
+                    st.native_ch, fmt_bam, [r[0] for r in sl],
+                    [r[1] for r in sl], [r[2] or b"" for r in sl],
+                    strip_tags=strip_tags,
+                )
             if raw is not None:
                 self.native.free_chunk(st.native_ch)
                 st.native_ch = None
@@ -395,8 +401,11 @@ class BatchAligner:
                 fmt_bam, strip_tags=strip_tags,
             ))
 
-        self._pipeline([r[1] for r in recs], fin)
-        return b"".join(chunks)
+        with self.stats.stage("prepare"):
+            seqs = [r[1] for r in recs]
+        self._pipeline(seqs, fin)
+        with self.stats.stage("join"):
+            return b"".join(chunks)
 
     def align_paired_emit(self, pair_recs, fmt_bam, max_insert: int = 1000,
                           mate_rescue: bool = True,
@@ -414,12 +423,15 @@ class BatchAligner:
         spliced into its bytes at the offsets it reports.  Chunks without
         the C++ engine (or whose emit fell back) are paired and
         serialized in Python.  ``stats`` counts ``emit_cpp_chunks``,
-        ``spliced_pairs`` and ``emit_py_chunks``."""
-        recs = [rec for pair in pair_recs for rec in pair]
+        ``spliced_pairs`` and ``emit_py_chunks``.  Spans as
+        ``align_batch_emit``'s."""
+        stats = self.stats
+        with stats.stage("prepare"):
+            recs = [rec for pair in pair_recs for rec in pair]
+            seqs = [r[1] for r in recs]
         ser_pair = pair_serializer(self.index, fmt_bam, max_insert,
                                    self.opts if mate_rescue else None,
                                    strip_tags)
-        stats = self.stats
         chunks: List[bytes] = []
 
         def pair_bytes(base, results, p):
@@ -435,19 +447,19 @@ class BatchAligner:
                 fin_data = self.native.finalize(st.native_ch, tb_out,
                                                 st.meta_all)
                 self.native.pair_chunk(st.native_ch, max_insert, mate_rescue)
-                sl = recs[start : start + len(st.reads)]
-                raw = self.native.emit_chunk(
-                    st.native_ch, fmt_bam, [r[0] for r in sl],
-                    [r[1] for r in sl], [r[2] or b"" for r in sl],
-                    strip_tags=strip_tags,
-                )
+                with stats.stage("emit"):
+                    sl = recs[start : start + len(st.reads)]
+                    raw = self.native.emit_chunk(
+                        st.native_ch, fmt_bam, [r[0] for r in sl],
+                        [r[1] for r in sl], [r[2] or b"" for r in sl],
+                        strip_tags=strip_tags,
+                    )
                 if raw is not None:
                     pairs_idx, offs = self.native.splices(st.native_ch)
                     self.native.free_chunk(st.native_ch)
                     st.native_ch = None
-                    stats.emit_cpp_chunks = getattr(stats, "emit_cpp_chunks", 0) + 1
-                    stats.spliced_pairs = (getattr(stats, "spliced_pairs", 0)
-                                           + len(pairs_idx))
+                    stats.emit_cpp_chunks += 1
+                    stats.spliced_pairs += len(pairs_idx)
                     if len(pairs_idx):
                         # objects only for the reads of the spliced pairs
                         want = {2 * p + m for p in pairs_idx.tolist()
@@ -461,12 +473,13 @@ class BatchAligner:
                     return
                 st.tb_full = tb_out  # fall back to the object path
             results = self._finalize_chunk(st)
-            stats.emit_py_chunks = getattr(stats, "emit_py_chunks", 0) + 1
+            stats.emit_py_chunks += 1
             chunks.append(b"".join(pair_bytes(base, results, p)
                                    for p in range(len(results) // 2)))
 
-        self._pipeline([r[1] for r in recs], fin, paired=True)
-        return b"".join(chunks)
+        self._pipeline(seqs, fin, paired=True)
+        with stats.stage("join"):
+            return b"".join(chunks)
 
     def _pin_shapes(self, reads: List[bytes]) -> None:
         """Raise every sticky shape to the batch's worst case up front,
@@ -517,39 +530,54 @@ class BatchAligner:
 
     def _pipeline_inner(self, reads: List[bytes], finalize_fn,
                         paired: bool) -> None:
+        """Each chunk's stages are the spans ``build``, ``dispatch``,
+        ``arbitrate`` and ``finalize``, labelled with its number; the
+        batch's sticky shapes are in the span ``prepare``."""
+        stats = self.stats
         built: List[Optional[_ChunkState]] = []
         starts: List[int] = []
         arb_i = fin_i = i = 0
-        self._RPAD = max(_round_up(max(map(len, reads), default=1), 32),
-                         self._RPAD)
-        self._pin_shapes(reads)
+        with stats.stage("prepare"):
+            self._RPAD = max(_round_up(max(map(len, reads), default=1), 32),
+                             self._RPAD)
+            self._pin_shapes(reads)
+        self._ref_text()  # its set-up spans stay top-level
         depth = self.pipeline_depth
+
+        def stage(name, st):
+            stats.chunk = st.no
+            return stats.stage(name)
+
         while i < len(reads) or not built:
-            with self.stats.stage("build"):
+            stats.chunk = self._chunks_built
+            with stats.stage("build"):
                 starts.append(i)
                 st, i = self._build_chunk(reads, i, paired)
-            self._dispatch_forward(st)
-            self.stats.chunks += 1
-            self.stats.reads += len(st.reads)
-            self.stats.problems += len(st.meta_all)
-            self.stats.tasks += len(
+            st.no = self._chunks_built
+            self._chunks_built += 1
+            with stats.stage("dispatch"):
+                self._dispatch_forward(st)
+            stats.chunks += 1
+            stats.reads += len(st.reads)
+            stats.problems += len(st.meta_all)
+            stats.tasks += len(
                 st.tasks if st.tasks_arr is None else st.tasks_arr)
             built.append(st)
             if len(built) - arb_i >= depth:
-                with self.stats.stage("arbitrate"):
+                with stage("arbitrate", built[arb_i]):
                     self._arbitrate_chunk(built[arb_i])
                 arb_i += 1
             if arb_i - fin_i >= depth:
-                with self.stats.stage("finalize"):
+                with stage("finalize", built[fin_i]):
                     finalize_fn(built[fin_i], starts[fin_i])
                 built[fin_i] = None
                 fin_i += 1
         while arb_i < len(built):
-            with self.stats.stage("arbitrate"):
+            with stage("arbitrate", built[arb_i]):
                 self._arbitrate_chunk(built[arb_i])
             arb_i += 1
         while fin_i < len(built):
-            with self.stats.stage("finalize"):
+            with stage("finalize", built[fin_i]):
                 finalize_fn(built[fin_i], starts[fin_i])
             built[fin_i] = None
             fin_i += 1
@@ -572,10 +600,11 @@ class BatchAligner:
         reads_pad, read_lens = self.native.prep_reads(
             reads, _pow2_bucket(max(len(reads), 1), 256), RPAD
         )
-        ch, consumed, meta, tasks = self.native.build_chunk(
-            reads_pad, read_lens, len(reads), self.PROBLEM_BUDGET,
-            paired=paired,
-        )
+        with self.stats.stage("seed"):
+            ch, consumed, meta, tasks = self.native.build_chunk(
+                reads_pad, read_lens, len(reads), self.PROBLEM_BUDGET,
+                paired=paired,
+            )
         if consumed == take and start + consumed < len(all_reads):
             self._est_chunk_reads = est * 2  # budget not reached: grow
         elif consumed < take:
@@ -820,9 +849,11 @@ class BatchAligner:
         full[st.fwd_idx, :4] = expand_stream_hdr(sub)
         bad = np.flatnonzero(full[:, 3] < 0)
         if len(bad):
-            self.native.patch_rows(
-                st.meta_all, bad, st.reads_host, self._ref_text_host, full,
-            )
+            with self.stats.stage("patch"):
+                self.native.patch_rows(
+                    st.meta_all, bad, st.reads_host, self._ref_text_host,
+                    full,
+                )
             self.stats.cert_patches += len(bad)
         st.patched = bad
         st.tb_full = full

@@ -46,7 +46,8 @@ from ..io.sam import (
     unique_refs,
     unmapped_sam_record,
 )
-from .run import FORMAT_BAM, FORMAT_SAM, _count_records, emit_in_cpp, profile_to
+from .run import (FORMAT_BAM, FORMAT_SAM, _count_records, bam_span,
+                  emit_in_cpp, profile_to)
 
 FLAG_PAIRED = 0x1
 FLAG_PROPER = 0x2
@@ -436,8 +437,22 @@ def _align_pairs(index, path1, path2, output_path, output_fmt, opts, engine,
     fh = (sys.stdout.buffer if binary else sys.stdout) if output_path == "-" \
         else open(output_path, "wb" if binary else "w")
     try:
-        writer = BamWriter(fh, index) if binary else SamWriter(fh, index)
-        stats = None
+        stats = run = None
+        if engine == "batch":
+            from .batch import BatchAligner
+
+            aligner = BatchAligner(index, opts, device=device, mesh=mesh)
+            run = aligner.align_paired_emit if emit_in_cpp() else None
+            stats = aligner.stats
+        elif engine == "cpp":
+            from .cpu import CppAligner
+
+            aligner = CppAligner(index, opts, threads=0)  # all cores
+            run = aligner.align_records_paired
+            stats = aligner.stats
+        wstats = stats if run is not None else None
+        writer = (BamWriter(fh, index, wstats) if binary
+                  else SamWriter(fh, index))
         if engine == "oracle":
             from .driver import OracleAligner
 
@@ -451,21 +466,12 @@ def _align_pairs(index, path1, path2, output_path, output_fmt, opts, engine,
                     ):
                         writer.write(rec)
         else:
-            if engine == "batch":
-                from .batch import BatchAligner
-
-                aligner = BatchAligner(index, opts, device=device, mesh=mesh)
-                run = aligner.align_paired_emit if emit_in_cpp() else None
-            else:
-                from .cpu import CppAligner
-
-                aligner = CppAligner(index, opts, threads=0)  # all cores
-                run = aligner.align_records_paired
-            stats = aligner.stats
             for buf in batches():
                 if run is not None:
-                    writer.write_raw(run(buf, binary, max_insert=max_insert,
-                                         mate_rescue=mate_rescue))
+                    raw = run(buf, binary, max_insert=max_insert,
+                              mate_rescue=mate_rescue)
+                    with bam_span(wstats, binary):
+                        writer.write_raw(raw)
                     continue
                 # objects: both mates ride one interleaved batch, R1 at
                 # even slots, R2 at odd
@@ -476,7 +482,8 @@ def _align_pairs(index, path1, path2, output_path, output_fmt, opts, engine,
                         res[2 * k + 1], max_insert, rescue_opts=rescue_opts,
                     ):
                         writer.write(rec)
-        writer.finish()
+        with bam_span(wstats, binary):
+            writer.finish()
         if verbose and stats is not None:
             print(stats.report(), file=sys.stderr)
     finally:

@@ -68,6 +68,14 @@ def emit_in_cpp() -> bool:
     return not os.environ.get("THERMITE_NO_EMIT")
 
 
+def bam_span(stats, binary: bool):
+    """The span ``bam_write`` around a BAM writer's calls (none for SAM
+    or without ``stats``); a writer given the same ``stats`` records its
+    blocks' compression inside it as ``bam_write/deflate``."""
+    return (stats.stage("bam_write") if binary and stats is not None
+            else nullcontext())
+
+
 def profile_to(profile_dir: Optional[str], engine: str, device, mesh):
     """The context a file entry point runs in: ``torch.profiler`` when
     ``profile_dir`` is given (CPU activity; CUDA too when the batch
@@ -156,6 +164,7 @@ def _align_reads(index, query_paths, output_path, output_fmt, opts, engine,
             yield buf
 
     binary = output_fmt == FORMAT_BAM
+    stats = aligner.stats if run is not None else None
     if output_path == "-":
         fh = sys.stdout.buffer if binary else sys.stdout
     else:
@@ -164,14 +173,15 @@ def _align_reads(index, query_paths, output_path, output_fmt, opts, engine,
         if output_fmt == FORMAT_SAM:
             writer = SamWriter(fh, index)
         elif binary:
-            writer = BamWriter(fh, index)
+            writer = BamWriter(fh, index, stats)
         else:
             writer = None
         if run is not None:
             for buf in batches():
                 raw = run([(r.id, r.seq, r.qual) for r in buf], fmt_code)
                 if writer is not None:
-                    writer.write_raw(raw)
+                    with bam_span(stats, binary):
+                        writer.write_raw(raw)
                 else:  # PAF: text handle, no header
                     fh.write(raw.decode())
         elif engine == "oracle":
@@ -184,7 +194,8 @@ def _align_reads(index, query_paths, output_path, output_fmt, opts, engine,
                  zip(buf, aligner.align_batch([r.seq for r in buf]))),
                 writer, fh)
         if writer is not None:
-            writer.finish()
+            with bam_span(stats, binary):
+                writer.finish()
         if verbose and engine != "oracle":
             print(aligner.stats.report(), file=sys.stderr)
     finally:

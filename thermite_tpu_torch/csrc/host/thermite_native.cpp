@@ -1073,18 +1073,6 @@ void* thermite_seed_index_new_from_arrays32(const uint8_t* text, int64_t n,
   return idx;
 }
 
-// THERMITE_SEED_DEBUG=1: cumulative per-phase nanoseconds inside
-// thermite_smems, read+reset via thermite_seed_prof (6 slots: keys,
-// probe, textwarm, extend, emit, calls).
-static bool seed_prof_on() {
-  static const bool on = [] {
-    const char* e = std::getenv("THERMITE_SEED_DEBUG");
-    return e && *e && *e != '0';
-  }();
-  return on;
-}
-static std::atomic<int64_t> g_seed_prof[6];
-
 // THERMITE_SEED_NOSKIP=1 forces the probe-everything discovery path
 // (differential testing / ops escape hatch for the adaptive probe
 // skip below).  Latched at first use — set it before the first call.
@@ -1094,10 +1082,6 @@ static bool seed_skip_on() {
     return !(e && *e && *e != '0');
   }();
   return on;
-}
-
-extern "C" void thermite_seed_prof(int64_t* out6) {
-  for (int i = 0; i < 6; ++i) out6[i] = g_seed_prof[i].exchange(0);
 }
 
 namespace {
@@ -1276,23 +1260,9 @@ int64_t thermite_smems(void* h, const uint8_t* read, int64_t rlen,
   // pre-pass: resolve and cache each anchor's posting range
   // (prefetched a pass ahead — the probes' cache misses dominate
   // seeding on chromosome-scale tables)
-  const bool sp = seed_prof_on();
-  auto snow = [] {
-    return std::chrono::duration_cast<std::chrono::nanoseconds>(
-               std::chrono::steady_clock::now().time_since_epoch())
-        .count();
-  };
-  int64_t tp = sp ? snow() : 0;
-  auto phase = [&](int slot) {
-    if (!sp) return;
-    int64_t now = snow();
-    g_seed_prof[slot] += now - tp;
-    tp = now;
-  };
   const int64_t n_anchor = rlen - k + 1;
   std::vector<int64_t> keys(n_anchor);
   bool any_invalid = seed_roll_keys(read, rlen, k, keys.data());
-  phase(0);
 
   DiagCoverMap cover;
   cover.reset();
@@ -1347,7 +1317,6 @@ int64_t thermite_smems(void* h, const uint8_t* read, int64_t rlen,
       int64_t nq = E - k + 1;
       q = nq > q + 1 ? nq : q + 1;
     }
-    phase(1);
   } else {
     const uint8_t* text = idx->text;
     const int64_t n = idx->n;
@@ -1431,7 +1400,6 @@ int64_t thermite_smems(void* h, const uint8_t* read, int64_t rlen,
                                  : (const void*)&idx->positions[lo]);
         }
       }
-      if (c0 == 0) phase(1);
       // text-warming pass: each anchor's first occurrence extends
       // against text lines around p; same-diagonal anchors hit the
       // same few lines (p advances with q), so these prefetches
@@ -1445,8 +1413,6 @@ int64_t thermite_smems(void* h, const uint8_t* read, int64_t rlen,
         __builtin_prefetch(&text[p]);
         if (p + k < n) __builtin_prefetch(&text[p + k]);
       }
-      if (c0 == 0) phase(2);
-
       for (int64_t q = c0; q < c1; ++q) {
         if (rlo[q] >= rhi[q]) continue;
         int64_t e = extend_range(q, rlo[q], rhi[q]);
@@ -1462,7 +1428,6 @@ int64_t thermite_smems(void* h, const uint8_t* read, int64_t rlen,
     }
   }
 
-  phase(3);
   std::vector<SeedMem> mems;
   std::vector<int64_t> env_scratch;
   seed_emit(occs, rlen, min_seed_len, &mems, &env_scratch);
@@ -1473,8 +1438,6 @@ int64_t thermite_smems(void* h, const uint8_t* read, int64_t rlen,
     out_t[i] = mems[i].t;
     out_len[i] = mems[i].len;
   }
-  phase(4);
-  if (sp) g_seed_prof[5] += 1;
   return (int64_t)mems.size();
 }
 
@@ -2007,38 +1970,6 @@ struct ReadBuild {
   int64_t rlen = 0, min_aln = 0;
 };
 
-// THERMITE_BUILD_DEBUG=1: per-chunk phase wall times (seed / genome
-// task construction / transcript candidates) to stderr — profiling aid
-// only, off by default so the hot loop carries no clock calls.
-struct BuildProf {
-  std::atomic<int64_t> seed_ns{0}, gx_ns{0}, tx_ns{0}, reads{0}, mems{0};
-  static bool on() {
-    static bool v = [] {
-      const char* e = std::getenv("THERMITE_BUILD_DEBUG");
-      return e && *e && *e != '0';
-    }();
-    return v;
-  }
-  void report(int64_t n_reads) {
-    double r = (double)(reads.load());
-    if (r == 0) return;
-    std::fprintf(stderr,
-                 "[build] reads=%lld mems/read=%.2f seed=%.1fus/read "
-                 "gx=%.1fus/read tx=%.1fus/read\n",
-                 (long long)n_reads, (double)mems.load() / r,
-                 seed_ns.load() / r / 1e3, gx_ns.load() / r / 1e3,
-                 tx_ns.load() / r / 1e3);
-    seed_ns = gx_ns = tx_ns = reads = mems = 0;
-  }
-};
-BuildProf g_build_prof;
-
-inline int64_t prof_now() {
-  return std::chrono::duration_cast<std::chrono::nanoseconds>(
-             std::chrono::steady_clock::now().time_since_epoch())
-      .count();
-}
-
 struct BuildScratch {
   std::vector<int64_t> mq, mt, ml, tx_cands;
   BuildScratch() { mq.resize(4096); mt.resize(4096); ml.resize(4096); }
@@ -2057,8 +1988,6 @@ void build_one_read(const Engine& E, const uint8_t* read, int64_t rlen,
 
   // local problem emitter (Chunk::meta layout, read-local ids)
   Chunk local;
-  const bool prof = BuildProf::on();
-  int64_t t_seed = prof ? prof_now() : 0;
   int64_t nm;
   if (pre != nullptr) {
     // pre-seeded by the interleaved engine (sequential chunk builds)
@@ -2081,14 +2010,6 @@ void build_one_read(const Engine& E, const uint8_t* read, int64_t rlen,
                           S.mt.data(), S.ml.data(), (int64_t)S.mq.size());
     }
   }
-  if (prof) {
-    int64_t now = prof_now();
-    g_build_prof.seed_ns += now - t_seed;
-    g_build_prof.reads += 1;
-    g_build_prof.mems += nm;
-    t_seed = now;
-  }
-
   for (int64_t m = 0; m < nm; ++m) {
     int64_t hq = S.mq[m], href = S.mt[m], hlen = S.ml[m];
     int64_t r = E.ref_of(href);
@@ -2103,11 +2024,6 @@ void build_one_read(const Engine& E, const uint8_t* read, int64_t rlen,
                            lp,       rp, seq_end - seq_start,
                            seq_start, -1};
     local.tasks.insert(local.tasks.end(), row, row + T_NCOL);
-    if (prof) {
-      int64_t now = prof_now();
-      g_build_prof.gx_ns += now - t_seed;
-      t_seed = now;
-    }
 
     // transcriptome candidates (src/aligner.rs:230-258), ascending tx
     E.e2t.find(href, href + hlen, &S.tx_cands);
@@ -2127,11 +2043,6 @@ void build_one_read(const Engine& E, const uint8_t* read, int64_t rlen,
                       read_off, sq, rlen, band, xdrop, &lp, &rp);
       int64_t trow[T_NCOL] = {0, 1, sref, sq, slen, lp, rp, tlen, 0, tx};
       local.tasks.insert(local.tasks.end(), trow, trow + T_NCOL);
-    }
-    if (prof) {
-      int64_t now = prof_now();
-      g_build_prof.tx_ns += now - t_seed;
-      t_seed = now;
     }
   }
   out->meta.swap(local.meta);
@@ -2195,11 +2106,8 @@ void* thermite_chunk_build(void* h, const uint8_t* reads, int64_t n_reads,
     std::vector<SeedMem> pre_mems;
     std::vector<int64_t> pre_off;
     const bool use_ilv = ilv.eligible() && n_reads >= 2 * SeedInterleaver::kW;
-    if (use_ilv) {
-      int64_t t0 = BuildProf::on() ? prof_now() : 0;
+    if (use_ilv)
       ilv.seed_all(reads, rpad, read_lens, n_reads, &pre_mems, &pre_off);
-      if (BuildProf::on()) g_build_prof.seed_ns += prof_now() - t0;
-    }
     for (int64_t ri = 0; ri < n_reads; ++ri) {
       if ((!paired || (ri & 1) == 0) && ch->n_problems() >= problem_budget)
         break;
@@ -2213,7 +2121,6 @@ void* thermite_chunk_build(void* h, const uint8_t* reads, int64_t n_reads,
       merge_read(ch, ri, rb);
     }
     ch->read_task_off.push_back(ch->n_tasks());
-    if (BuildProf::on()) g_build_prof.report(ch->n_reads);
     return ch;
   }
 
@@ -2242,7 +2149,6 @@ void* thermite_chunk_build(void* h, const uint8_t* reads, int64_t n_reads,
     merge_read(ch, ri, built[ri]);
   }
   ch->read_task_off.push_back(ch->n_tasks());
-  if (BuildProf::on()) g_build_prof.report(ch->n_reads);
   return ch;
 }
 
@@ -3034,19 +2940,9 @@ void* thermite_chunk_align_cpu_mt(void* eh, const uint8_t* reads,
     return nullptr;
   }
   if (cert_patches) *cert_patches += patches_total.load();
-  const bool prof = BuildProf::on();  // THERMITE_BUILD_DEBUG=1
-  int64_t t0 = prof ? prof_now() : 0;
   thermite_chunk_arbitrate(eh, ch, scores.data(), mi.data(), mj.data());
-  int64_t t1 = prof ? prof_now() : 0;
   int64_t rc = thermite_chunk_finalize(eh, ch, rows.data(), P, pw,
                                        ch->meta.data());
-  if (prof) {
-    int64_t t2 = prof_now();
-    std::fprintf(stderr,
-                 "[cpu] reads=%lld arbitrate=%.2fus/read finalize=%.2fus/read\n",
-                 (long long)ch->n_reads, (t1 - t0) / 1e3 / ch->n_reads,
-                 (t2 - t1) / 1e3 / ch->n_reads);
-  }
   if (rc != 0) {
     delete ch;
     return nullptr;

@@ -33,19 +33,30 @@ def _bgzf_block(data: bytes) -> bytes:
 
 
 class BgzfWriter:
-    def __init__(self, fh):
+    """``stats`` (a ``PipelineStats``): each block's compression is its
+    span ``deflate``, ``bam_write/deflate`` inside the caller's
+    ``bam_write``."""
+
+    def __init__(self, fh, stats=None):
         self.fh = fh
         self.buf = bytearray()
+        self.stats = stats
+
+    def _block(self, data: bytes) -> bytes:
+        if self.stats is None:
+            return _bgzf_block(data)
+        with self.stats.stage("deflate"):
+            return _bgzf_block(data)
 
     def write(self, data: bytes) -> None:
         self.buf += data
         while len(self.buf) >= 60000:
-            self.fh.write(_bgzf_block(bytes(self.buf[:60000])))
+            self.fh.write(self._block(bytes(self.buf[:60000])))
             del self.buf[:60000]
 
     def finish(self) -> None:
         if self.buf:
-            self.fh.write(_bgzf_block(bytes(self.buf)))
+            self.fh.write(self._block(bytes(self.buf)))
             self.buf.clear()
         self.fh.write(_BGZF_EOF)
 
@@ -161,10 +172,10 @@ def encode_bam_record(rec: SamRecord, ref_ids: dict) -> bytes:
 
 
 class BamWriter:
-    def __init__(self, fh, index):
+    def __init__(self, fh, index, stats=None):
         from .sam import unique_refs
 
-        self.bgzf = BgzfWriter(fh)
+        self.bgzf = BgzfWriter(fh, stats)
         header_text = build_sam_header(index)
         refs = unique_refs(index)
         self.ref_ids = {name: i for i, (name, _) in enumerate(refs)}

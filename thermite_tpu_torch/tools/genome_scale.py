@@ -70,17 +70,9 @@ def card_readings(dev) -> Dict[str, object]:
 
 
 def stage_split(stats) -> Dict[str, float]:
-    """``PipelineStats`` stage seconds as the report splits them: each
-    stage's host time, and the device wait + d2h of the stages that
-    synchronize with the card."""
-    out = {}
-    for name, s in sorted(stats.stage_s.items()):
-        if name.endswith("/dsync"):
-            out[f"{name[:-6]} device wait+d2h"] = round(s, 4)
-            continue
-        sub = stats.stage_s.get(name + "/dsync", 0.0)
-        out[f"{name} host" if sub else name] = round(s - sub, 4)
-    return out
+    """``PipelineStats.split``: each top-level stage's host time, and
+    the device wait + d2h of the stages that synchronize with the card."""
+    return {k: round(v, 4) for k, v in stats.split().items()}
 
 
 def _peak_rss() -> int:

@@ -1,20 +1,50 @@
-"""Pipeline observability: per-stage timers and throughput counters.
+"""Pipeline observability: the program's span recorder and its counters.
 
 The reference has no in-code instrumentation (its only observability is
 zsh REPORTTIME around make targets, reference data/Makefile:45-51);
 the port keeps designed-in equivalents:
-per-stage wall times, reads/s, and DP-cell throughput (GCUPS).
+per-span wall times, reads/s, and DP-cell throughput (GCUPS).
 ``BatchAligner`` feeds one ``PipelineStats`` across its lifetime;
 ``thermite align -v`` prints the report.
+
+Spans nest: ``stage("seed")`` opened inside ``stage("build")`` records
+under ``build/seed``; a top-level span's key is its bare name, and the
+process's CPU seconds over it (every thread's, so the C++ pools count)
+add to ``<name>/cpu``.  ``dsync(outer)`` records the device wait inside
+``outer`` under ``<outer>/dsync``.  ``dsync`` and ``cpu`` are therefore
+no span's name.  While a ``torch.profiler`` records, each span is also a
+span of its trace, named by its path, with the number of the chunk it
+belongs to (``chunk``) as its argument; otherwise a span makes no torch
+call.  The recorder is the pipeline thread's: spans opened on other
+threads would interleave its path.
 """
 
 from __future__ import annotations
 
+import sys
 import time
 from collections import defaultdict
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, List
+
+RESERVED = ("dsync", "cpu")  # leaf keys the recorder writes itself
+
+
+def _profiler_on() -> bool:
+    """Whether a torch profiler records now: torch's own Python flag,
+    read without a call (torch not imported: none records)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+def _profiler_span(path: str, chunk: int):
+    """The profiler's span ``path`` with ``chunk`` as its argument (in a
+    Chrome trace when the profiler records shapes, as
+    ``utils/profile.py::profiled`` does)."""
+    from torch._C._profiler import _RecordFunctionFast
+
+    return _RecordFunctionFast(path, (), {"chunk": chunk})
 
 
 @dataclass
@@ -37,16 +67,41 @@ class PipelineStats:
     #                           (host recompute; a mass fallback is a
     #                           silent performance cliff — see MAXIT in
     #                           the reference's stream kernels)
+    # paired emit: chunks emitted by the C++ engine, pairs spliced in
+    # from the Python writers, chunks serialized in Python
+    emit_cpp_chunks: int = 0
+    spliced_pairs: int = 0
+    emit_py_chunks: int = 0
     stage_s: Dict[str, float] = field(default_factory=lambda: defaultdict(float))
-    _t0: float = field(default_factory=time.time)
+    chunk: int = -1  # the chunk the spans opened now belong to
+    _open: List[str] = field(default_factory=list, repr=False)  # open spans
+    _t0: float = field(default_factory=time.perf_counter)
 
     @contextmanager
     def stage(self, name: str):
-        t = time.time()
+        """Time the block as the span ``name``: under ``<outer>/name``
+        inside the open span ``outer``, else under ``name`` with the
+        process's CPU seconds under ``name/cpu``."""
+        if name in RESERVED or "/" in name:
+            raise ValueError(f"{name!r} cannot name a span")
+        opened = self._open
+        top = not opened
+        path = name if top else f"{opened[-1]}/{name}"
+        opened.append(path)
+        rec = _profiler_span(path, self.chunk) if _profiler_on() else None
+        if rec is not None:
+            rec.__enter__()
+        cpu = time.process_time() if top else 0.0
+        t = time.perf_counter()
         try:
             yield
         finally:
-            self.stage_s[name] += time.time() - t
+            self.stage_s[path] += time.perf_counter() - t
+            if top:
+                self.stage_s[path + "/cpu"] += time.process_time() - cpu
+            opened.pop()
+            if rec is not None:
+                rec.__exit__(None, None, None)
 
     @contextmanager
     def dsync(self, outer: str):
@@ -56,14 +111,20 @@ class PipelineStats:
         time stop masquerading as one another (on a host with few cores the
         sync absorbs the kernel wall and the transfer, which would
         otherwise read as host arbitration time)."""
-        t = time.time()
+        key = outer + "/dsync"
+        rec = _profiler_span(key, self.chunk) if _profiler_on() else None
+        if rec is not None:
+            rec.__enter__()
+        t = time.perf_counter()
         try:
             yield
         finally:
-            self.stage_s[outer + "/dsync"] += time.time() - t
+            self.stage_s[key] += time.perf_counter() - t
+            if rec is not None:
+                rec.__exit__(None, None, None)
 
     def wall_s(self) -> float:
-        return time.time() - self._t0
+        return time.perf_counter() - self._t0
 
     def reset(self) -> None:
         """Zero all counters/timers and restart the clock.  Call after a
@@ -73,8 +134,42 @@ class PipelineStats:
         self.reads = self.chunks = self.problems = self.tasks = 0
         self.winners = self.dp_cells = self.stream_fallbacks = 0
         self.dp_cells_ref = self.cert_patches = 0
+        self.emit_cpp_chunks = self.spliced_pairs = self.emit_py_chunks = 0
         self.stage_s.clear()
-        self._t0 = time.time()
+        self._t0 = time.perf_counter()
+
+    def spans(self) -> List[str]:
+        """Every recorded span's path, each after its parent (the
+        ``/cpu`` and ``/dsync`` keys are not spans)."""
+        return sorted((k for k in self.stage_s
+                       if k.rpartition("/")[2] not in RESERVED),
+                      key=lambda k: k.split("/"))
+
+    def self_s(self, path: str) -> float:
+        """The span's seconds outside its child spans and its device
+        wait (never below 0: the children ran inside it, on the same
+        clock, so only rounding could take it there)."""
+        st = self.stage_s
+        inner = sum(v for k, v in st.items() if k.rpartition("/")[0] == path
+                    and k.rpartition("/")[2] != "cpu")
+        return max(st.get(path, 0.0) - inner, 0.0)
+
+    def split(self) -> Dict[str, float]:
+        """The top-level spans' seconds: each one's host time (its wall
+        less its device wait) under its name, or ``<name> host`` where
+        it waited for the card, and that wait under ``<name> device
+        wait+d2h``."""
+        out = {}
+        for name in self.spans():
+            if "/" in name:
+                continue
+            wait = self.stage_s.get(name + "/dsync")
+            if wait is None:
+                out[name] = self.stage_s[name]
+            else:
+                out[f"{name} host"] = self.stage_s[name] - wait
+                out[f"{name} device wait+d2h"] = wait
+        return out
 
     def report(self) -> str:
         wall = max(self.wall_s(), 1e-9)
@@ -101,17 +196,22 @@ class PipelineStats:
             lines.append(
                 f"  stream-walk host fallbacks\t{self.stream_fallbacks}"
             )
-        for name, s in sorted(self.stage_s.items()):
-            if name.endswith("/dsync"):
-                lines.append(
-                    f"  stage {name[:-6]} device wait+d2h\t{s:.3f} s"
-                    f" ({100 * s / wall:.0f}%)"
-                )
-                continue
-            sub = self.stage_s.get(name + "/dsync", 0.0)
-            host = s - sub
-            tag = " host" if sub else ""
-            lines.append(
-                f"  stage {name}{tag}\t{host:.3f} s ({100 * host / wall:.0f}%)"
-            )
+        spans = self.spans()
+        if spans:
+            lines.append("  spans: wall (share of the wall time), self (less"
+                         " the spans inside and the device wait);"
+                         " CPU/wall of the top-level ones")
+        for path in spans:
+            s = self.stage_s[path]
+            pad = "  " * (path.count("/") + 2)
+            line = (f"{pad}{path.rpartition('/')[2]}\t{s:.3f} s"
+                    f" ({100 * s / wall:.0f}%)\tself {self.self_s(path):.3f} s")
+            if "/" not in path:
+                cpu = self.stage_s.get(path + "/cpu", 0.0)
+                line += f"\tCPU/wall {cpu / max(s, 1e-9):.2f}"
+            lines.append(line)
+            wait = self.stage_s.get(path + "/dsync")
+            if wait is not None:
+                lines.append(f"{pad}  device wait+d2h\t{wait:.3f} s"
+                             f" ({100 * wait / wall:.0f}%)")
         return "\n".join(lines)

@@ -117,6 +117,19 @@ def test_replicate_uploads_once_per_distinct_device():
     assert port_device.upload(np.arange(3), torch.device("cpu")).tolist() == [0, 1, 2]
 
 
+def test_release_pinned_waits_for_each_card_then_empties(monkeypatch):
+    calls = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda d: calls.append(d))
+    monkeypatch.setattr(torch.accelerator, "empty_host_cache",
+                        lambda: calls.append("empty"), raising=False)
+    port_device.release_pinned(port_mesh.make_mesh(4, "cpu"))
+    assert calls == []  # no card: no call into CUDA
+    cards = (torch.device("cuda", 0),) * 3 + (torch.device("cuda", 1),)
+    port_device.release_pinned(cards)
+    assert sorted(map(str, calls[:2])) == ["cuda:0", "cuda:1"]
+    assert calls[2:] == ["empty"]
+
+
 # -- kernel level: split rows == the unsplit call == the reference -----
 
 

@@ -2,13 +2,19 @@
 
 Spans nest under path keys with their CPU seconds at the top level; a
 span's self time is never below 0; ``reset`` clears what was recorded;
-``dsync`` and ``cpu`` name no span.  The main path (``align_batch_emit``
+``dsync`` and ``cpu`` name no span.  The BAM writer compresses a
+write's blocks as one ``deflate`` span on the calling thread and counts
+its blocks, pooled or not.  The main path (``align_batch_emit``
 with the C++ engine) records the stages it had and the spans inside
 them, each parent holding its children.  Under ``torch.profiler`` each
 span is an event named by its path; with no profiler recording a span
 makes no call into the profiler."""
 
+import io
+import threading
 import time
+from contextlib import contextmanager
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -16,6 +22,7 @@ import torch
 from thermite_tpu_torch.align.batch import BatchAligner
 from thermite_tpu_torch.align.driver import AlignOpts
 from thermite_tpu_torch.index.build import Index
+from thermite_tpu_torch.io.bam import BamWriter
 from thermite_tpu_torch.testing.synth import make_truth_reads, write_synth_genome
 from thermite_tpu_torch.utils.stats import PipelineStats
 
@@ -99,20 +106,61 @@ def test_reset_clears_everything():
     st.reads = st.chunks = st.problems = st.tasks = st.winners = 3
     st.dp_cells = st.dp_cells_ref = st.cert_patches = 3
     st.stream_fallbacks = st.emit_cpp_chunks = st.spliced_pairs = 3
-    st.emit_py_chunks = 3
+    st.emit_py_chunks = st.bgzf_blocks = st.bgzf_pooled_blocks = 3
     t0 = st._t0
     st.reset()
     fresh = PipelineStats()
     for name in ("reads", "chunks", "problems", "tasks", "winners",
                  "dp_cells", "dp_cells_ref", "cert_patches",
                  "stream_fallbacks", "emit_cpp_chunks", "spliced_pairs",
-                 "emit_py_chunks"):
+                 "emit_py_chunks", "bgzf_blocks", "bgzf_pooled_blocks"):
         assert getattr(st, name) == getattr(fresh, name) == 0, name
     assert dict(st.stage_s) == {} and st.spans() == []
     assert st._t0 > t0
     with st.stage("build"):  # the recorder works on after a reset
         pass
     assert set(st.stage_s) == {"build", "build/cpu"}
+
+
+class _SpanLog(PipelineStats):
+    """A recorder that also logs each span it opens, with its thread."""
+
+    def __init__(self):
+        super().__init__()
+        self.opened = []
+
+    @contextmanager
+    def stage(self, name):
+        self.opened.append((name, threading.get_ident()))
+        with super().stage(name):
+            yield
+
+
+def test_bam_writer_spans_and_block_counters(monkeypatch):
+    monkeypatch.setenv("THERMITE_THREADS", "4")
+    st = _SpanLog()
+    fh = io.BytesIO()
+    index = SimpleNamespace(refs=[SimpleNamespace(name="chr1", len=1000)])
+    writer = BamWriter(fh, index, st)  # the header: no block
+    assert st.opened == [] and st.bgzf_blocks == st.bgzf_pooled_blocks == 0
+    with st.stage("bam_write"):
+        writer.write_raw(b"\x07" * 60_000)  # one full block: inline
+    assert st.bgzf_blocks == 1 and st.bgzf_pooled_blocks == 0
+    st.opened.clear()
+    for _ in range(2):  # three full blocks each: the pool
+        with st.stage("bam_write"):
+            writer.write_raw(bytes(range(256)) * 800)
+    me = threading.get_ident()
+    assert st.opened == [("bam_write", me), ("deflate", me)] * 2
+    assert st.bgzf_pooled_blocks == 6 and st.bgzf_blocks == 7
+    assert set(st.stage_s) == {"bam_write", "bam_write/cpu",
+                               "bam_write/deflate"}
+    report = st.report()
+    assert "  BGZF blocks\t7 (6 on the pool)" in report
+    assert "    deflate\t" in report
+    st.reset()
+    assert st.bgzf_blocks == st.bgzf_pooled_blocks == 0
+    assert "BGZF blocks" not in st.report()
 
 
 @pytest.mark.parametrize("name", ["dsync", "cpu", "build/seed"])

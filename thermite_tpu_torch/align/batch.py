@@ -342,6 +342,7 @@ class BatchAligner:
                     nib = pack_text_nib_host(self._ref_text_host)
             with self.stats.stage("text upload"):
                 self._ref_text_dev = replicate(self.mesh, nib)
+            _device.release_pinned(self.mesh)
         return self._ref_text_dev
 
     def _rows_bucket(self, n: int, sticky: int) -> int:

@@ -95,8 +95,9 @@ def _parser() -> argparse.ArgumentParser:
                     "referee; cpp = all-C++ host engine (SAM/BAM only)")
     pa.add_argument("--batch-size", type=int, default=16384)
     pa.add_argument("--threads", type=int, default=0, metavar="N",
-                    help="host threads of the C++ stages and of the cpp "
-                    "engine's DP (0 = THERMITE_THREADS, else all cores)")
+                    help="host threads of the C++ stages, of the cpp "
+                    "engine's DP and of the BAM writer's deflate "
+                    "(0 = THERMITE_THREADS, else all cores)")
     pa.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cuda (default) or cpu (plain PyTorch kernels)")
     pa.add_argument("--paired", action="store_true",

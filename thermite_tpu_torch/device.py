@@ -32,6 +32,23 @@ def resolve(device="cuda") -> torch.device:
     return dev
 
 
+def release_pinned(devs) -> None:
+    """Hand torch's cached pinned host blocks back to the system once
+    every copy on the CUDA devices of ``devs`` is done.  For after a
+    one-off upload (the resident text): its staging block is of a size
+    class that no chunk's copy takes, and would stay resident for the
+    process's life."""
+    cuda = {d for d in devs if d.type == "cuda"}
+    if not cuda:
+        return
+    for d in cuda:
+        torch.cuda.synchronize(d)
+    empty = (getattr(torch.accelerator, "empty_host_cache", None)
+             or getattr(torch._C, "_host_emptyCache", None))
+    if empty is not None:
+        empty()
+
+
 STAGE_BYTES = 64 << 20  # one pinned staging buffer of a large upload
 
 

@@ -8,8 +8,12 @@ Also includes a minimal BAM *reader* used by the parity-metrics harness
 
 from __future__ import annotations
 
+import os
 import struct
+import threading
 import zlib
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Iterator, List, Optional, Tuple
 
@@ -32,31 +36,79 @@ def _bgzf_block(data: bytes) -> bytes:
     return header + comp + struct.pack("<II", zlib.crc32(data), len(data) & 0xFFFFFFFF)
 
 
+_BLOCK = 60000  # uncompressed bytes of every BGZF block but a stream's last
+_pool: Optional[ThreadPoolExecutor] = None
+_pool_threads = 0
+_pool_lock = threading.Lock()
+
+
+def _threads() -> int:
+    """The host threads of the C++ stages: ``THERMITE_THREADS`` (the
+    CLI's ``--threads``), else every core."""
+    return max(int(os.environ.get("THERMITE_THREADS") or os.cpu_count() or 1), 1)
+
+
+def _deflate_pool(threads: int) -> ThreadPoolExecutor:
+    """The process's pool of ``threads`` deflate workers, made at first
+    use and made again when the count changes."""
+    global _pool, _pool_threads
+    with _pool_lock:
+        if _pool is None or _pool_threads != threads:
+            if _pool is not None:
+                _pool.shutdown(wait=False)  # its submitted blocks still run
+            _pool = ThreadPoolExecutor(threads, thread_name_prefix="bgzf")
+            _pool_threads = threads
+        return _pool
+
+
 class BgzfWriter:
-    """``stats`` (a ``PipelineStats``): each block's compression is its
-    span ``deflate``, ``bam_write/deflate`` inside the caller's
-    ``bam_write``."""
+    """Each ``write`` hands every full block of the stream so far to
+    ``fh`` before it returns, one ``fh.write`` a block, in stream order;
+    ``buf`` keeps the tail.  A write of several blocks compresses them at
+    once on ``_threads()`` threads (zlib releases the interpreter lock),
+    with the same bytes.
+
+    ``stats`` (a ``PipelineStats``): a write's compression is one span
+    ``deflate``, ``bam_write/deflate`` inside the caller's ``bam_write``;
+    the counters ``bgzf_blocks`` and ``bgzf_pooled_blocks``."""
 
     def __init__(self, fh, stats=None):
         self.fh = fh
         self.buf = bytearray()
         self.stats = stats
 
-    def _block(self, data: bytes) -> bytes:
-        if self.stats is None:
-            return _bgzf_block(data)
-        with self.stats.stage("deflate"):
-            return _bgzf_block(data)
+    def _write_blocks(self, views) -> None:
+        threads = _threads()
+        pooled = threads > 1 and len(views) > 1
+        st = self.stats
+        with st.stage("deflate") if st is not None else nullcontext():
+            if pooled:  # the pool starts no more threads than blocks
+                blocks = list(_deflate_pool(threads).map(_bgzf_block, views))
+            else:
+                blocks = [_bgzf_block(v) for v in views]
+        if st is not None:
+            st.bgzf_blocks += len(views)
+            if pooled:
+                st.bgzf_pooled_blocks += len(views)
+        for block in blocks:
+            self.fh.write(block)
 
     def write(self, data: bytes) -> None:
-        self.buf += data
-        while len(self.buf) >= 60000:
-            self.fh.write(self._block(bytes(self.buf[:60000])))
-            del self.buf[:60000]
+        head = _BLOCK - len(self.buf)  # the new bytes that fill the tail's block
+        if len(data) < head:
+            self.buf += data
+            return
+        # views of one immutable stream: no copy per block
+        data = memoryview(bytes(data))
+        cut = len(data) - (len(data) - head) % _BLOCK
+        views = [bytes(self.buf) + data[:head]]
+        views += [data[o : o + _BLOCK] for o in range(head, cut, _BLOCK)]
+        self.buf = bytearray(data[cut:])
+        self._write_blocks(views)
 
     def finish(self) -> None:
         if self.buf:
-            self.fh.write(self._block(bytes(self.buf)))
+            self._write_blocks([bytes(self.buf)])
             self.buf.clear()
         self.fh.write(_BGZF_EOF)
 

@@ -72,6 +72,10 @@ class PipelineStats:
     emit_cpp_chunks: int = 0
     spliced_pairs: int = 0
     emit_py_chunks: int = 0
+    # the BAM writer's BGZF blocks, and those of them compressed on its
+    # thread pool (a write of two or more full blocks)
+    bgzf_blocks: int = 0
+    bgzf_pooled_blocks: int = 0
     stage_s: Dict[str, float] = field(default_factory=lambda: defaultdict(float))
     chunk: int = -1  # the chunk the spans opened now belong to
     _open: List[str] = field(default_factory=list, repr=False)  # open spans
@@ -135,6 +139,7 @@ class PipelineStats:
         self.winners = self.dp_cells = self.stream_fallbacks = 0
         self.dp_cells_ref = self.cert_patches = 0
         self.emit_cpp_chunks = self.spliced_pairs = self.emit_py_chunks = 0
+        self.bgzf_blocks = self.bgzf_pooled_blocks = 0
         self.stage_s.clear()
         self._t0 = time.perf_counter()
 
@@ -196,6 +201,9 @@ class PipelineStats:
             lines.append(
                 f"  stream-walk host fallbacks\t{self.stream_fallbacks}"
             )
+        if self.bgzf_blocks:
+            lines.append(f"  BGZF blocks\t{self.bgzf_blocks}"
+                         f" ({self.bgzf_pooled_blocks} on the pool)")
         spans = self.spans()
         if spans:
             lines.append("  spans: wall (share of the wall time), self (less"

@@ -87,6 +87,7 @@ from .types import (
     EXONIC,
     INTERGENIC,
     INTRONIC,
+    YCLIP,
     Alignment,
     GenomeAlignment,
     Mem,
@@ -168,6 +169,7 @@ class _ChunkState:
 
     reads: List[bytes]
     no: int = -1  # the chunk's number in the aligner's life
+    tx_problems: int = 0  # problems in transcript windows
     # Python build (no C++ engine)
     problems: _Problems = field(default_factory=_Problems)
     tasks: List["_Task"] = field(default_factory=list)
@@ -358,7 +360,13 @@ class BatchAligner:
     # ------------------------------------------------------------------
     def align_batch(self, reads: List[bytes]) -> List[List[GenomeAlignment]]:
         out: List[List[GenomeAlignment]] = []
-        self._pipeline(reads, lambda st, s0: out.extend(self._finalize_chunk(st)))
+
+        def fin(st, start):
+            results = self._finalize_chunk(st)
+            self._count_results(results)
+            out.extend(results)
+
+        self._pipeline(reads, fin)
         return out
 
     def align_batch_emit(self, recs, fmt_bam, strip_tags: bool = False) -> bytes:
@@ -370,19 +378,22 @@ class BatchAligner:
         serialized by the Python writers instead, with the same bytes.
         The C++ emit of a chunk is the span ``finalize/emit``; the
         batch's sequence list is in the span ``prepare``, the join of its
-        chunks' bytes the span ``join``."""
+        chunks' bytes the span ``join``.  Each chunk's reads add to the
+        record counters (``exonic_reads``, ``spliced_reads``,
+        ``unmapped_reads``)."""
         chunks: List[bytes] = []
 
         def fin(st, start):
             if st.native_ch is None:
                 results = self._finalize_chunk(st)
+                self._count_results(results)
                 chunks.append(_serialize_records(
                     self.index, recs[start : start + len(results)], results,
                     fmt_bam, strip_tags=strip_tags,
                 ))
                 return
             tb_out = self._take_tb(st)
-            self.native.finalize(st.native_ch, tb_out, st.meta_all)
+            fin_runs, fin_off = self._native_finalize(st, tb_out)[:2]
             with self.stats.stage("emit"):
                 sl = recs[start : start + len(st.reads)]
                 raw = self.native.emit_chunk(
@@ -391,12 +402,14 @@ class BatchAligner:
                     strip_tags=strip_tags,
                 )
             if raw is not None:
+                self._count_native(st, fin_runs, fin_off)
                 self.native.free_chunk(st.native_ch)
                 st.native_ch = None
                 chunks.append(raw)
                 return
             st.tb_full = tb_out  # fall back to the object path
             results = self._finalize_chunk(st)
+            self._count_results(results)
             chunks.append(_serialize_records(
                 self.index, recs[start : start + len(results)], results,
                 fmt_bam, strip_tags=strip_tags,
@@ -425,7 +438,8 @@ class BatchAligner:
         the C++ engine (or whose emit fell back) are paired and
         serialized in Python.  ``stats`` counts ``emit_cpp_chunks``,
         ``spliced_pairs`` and ``emit_py_chunks``.  Spans as
-        ``align_batch_emit``'s."""
+        ``align_batch_emit``'s; the record counters are not counted (mate
+        rescue rewrites records after the engine)."""
         stats = self.stats
         with stats.stage("prepare"):
             recs = [rec for pair in pair_recs for rec in pair]
@@ -445,8 +459,7 @@ class BatchAligner:
             base = start // 2
             if st.native_ch is not None:
                 tb_out = self._take_tb(st)
-                fin_data = self.native.finalize(st.native_ch, tb_out,
-                                                st.meta_all)
+                fin_data = self._native_finalize(st, tb_out)
                 self.native.pair_chunk(st.native_ch, max_insert, mate_rescue)
                 with stats.stage("emit"):
                     sl = recs[start : start + len(st.reads)]
@@ -561,6 +574,7 @@ class BatchAligner:
             stats.chunks += 1
             stats.reads += len(st.reads)
             stats.problems += len(st.meta_all)
+            stats.tx_problems += st.tx_problems
             stats.tasks += len(
                 st.tasks if st.tasks_arr is None else st.tasks_arr)
             built.append(st)
@@ -613,7 +627,8 @@ class BatchAligner:
             # tail chunk must not shrink it)
             self._est_chunk_reads = consumed
         st = _ChunkState(reads=reads[:consumed], native_ch=ch, meta_all=meta,
-                         tasks_arr=tasks, reads_host=reads_pad)
+                         tasks_arr=tasks, reads_host=reads_pad,
+                         tx_problems=self.native.tx_problems(ch))
         rows = self._reads_bucket(max(consumed, 1))
         if rows <= len(reads_pad):
             upload = reads_pad[:rows]
@@ -687,6 +702,7 @@ class BatchAligner:
                         right_pid=rp, ref_len=len(tx.seq), abs_hit=hit,
                         tx_idx=tx_idx,
                     ))
+                    st.tx_problems += 2
             st.per_read_tasks.append(rtasks)
             st.tasks.extend(rtasks)
 
@@ -869,6 +885,7 @@ class BatchAligner:
         st.selected_arr, st.pid_list = self.native.arbitrate(
             st.native_ch, scores, max_i, max_j
         )
+        self._lift_span(st, 0)
         self.stats.winners += len(st.pid_list)
         self._dispatch_stream_gather(st)
 
@@ -1051,6 +1068,50 @@ class BatchAligner:
     # ------------------------------------------------------------------
     _ALN_TYPES = (EXONIC, INTRONIC, INTERGENIC)
 
+    def _lift_span(self, st: _ChunkState, stage: int) -> None:
+        """The span ``lift`` inside the open stage: the C++ engine's
+        exonic lifts in the chunk's last arbitration (``stage`` 0) or
+        finalize (1), where it lifted any."""
+        n, s = self.native.lift(st.native_ch, stage)
+        if n:
+            self.stats.timed("lift", s)
+
+    def _native_finalize(self, st: _ChunkState, tb_out: np.ndarray):
+        """``NativeBatchEngine.finalize`` of the chunk, with its lifts'
+        span."""
+        fin_data = self.native.finalize(st.native_ch, tb_out, st.meta_all)
+        self._lift_span(st, 1)
+        return fin_data
+
+    def _count_native(self, st: _ChunkState, fin_runs: np.ndarray,
+                      fin_off: np.ndarray) -> None:
+        """The record counters of a chunk finalized in C++ without a
+        stream fallback: each mapped read has one primary selected row
+        (``selected`` columns 2, the type, 0 exonic, and 10, primary)."""
+        sel = st.selected_arr
+        prim = np.flatnonzero(sel[:, 10] == 1)
+        skips = np.concatenate(([0], np.cumsum((fin_runs >> 32) == 5)))
+        stats = self.stats
+        stats.exonic_reads += int(np.count_nonzero(sel[prim, 2] == 0))
+        stats.spliced_reads += int(np.count_nonzero(
+            skips[fin_off[prim + 1]] > skips[fin_off[prim]]))
+        stats.unmapped_reads += len(st.reads) - len(prim)
+
+    def _count_results(self, results: List[List[GenomeAlignment]]) -> None:
+        """The record counters of a chunk's result objects."""
+        stats = self.stats
+        for alns in results:
+            if not alns:
+                stats.unmapped_reads += 1
+                continue
+            prim = next(a for a in alns if a.primary)
+            stats.exonic_reads += prim.aln_type == EXONIC
+            runs = prim.gx_aln.op_runs
+            stats.spliced_reads += (
+                any(int(r) >> 32 == 5 for r in runs) if runs is not None
+                else any(type(op) is tuple and op[0] == YCLIP
+                         for op in prim.gx_aln.operations))
+
     def _finalize_chunk(self, st: _ChunkState) -> List[List[GenomeAlignment]]:
         """Decode, stitch and lift the chunk's selected alignments (in C++,
         or in Python without the C++ engine) and build the result
@@ -1062,8 +1123,7 @@ class BatchAligner:
                     for ri, read in enumerate(st.reads)]
         results: List[List[GenomeAlignment]] = [[] for _ in st.reads]
         if len(st.selected_arr):
-            fin_data = self.native.finalize(st.native_ch, self._take_tb(st),
-                                            st.meta_all)
+            fin_data = self._native_finalize(st, self._take_tb(st))
             self._objects_from_native(st, fin_data, results)
         st.tb_full = None
         self.native.free_chunk(st.native_ch)

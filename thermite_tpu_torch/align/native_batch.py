@@ -74,12 +74,17 @@ def _setup(lib):
         ("thermite_chunk_selected", _i64p),
         ("thermite_chunk_n_winners", ctypes.c_int64),
         ("thermite_chunk_winners", _i64p),
+        ("thermite_chunk_tx_problems", ctypes.c_int64),
     ]:
         fn = getattr(lib, name)
         fn.restype = res
         fn.argtypes = [ctypes.c_void_p]
     lib.thermite_chunk_arbitrate.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, _i32p, _i32p, _i32p,
+    ]
+    lib.thermite_chunk_lift.restype = ctypes.c_int64
+    lib.thermite_chunk_lift.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_double),
     ]
     lib.thermite_chunk_finalize.restype = ctypes.c_int64
     lib.thermite_chunk_finalize.argtypes = [
@@ -372,6 +377,21 @@ class NativeBatchEngine:
         tasks = np.ctypeslib.as_array(lib.thermite_chunk_tasks(ch), (T, 10)).copy() \
             if T else np.zeros((0, 10), np.int64)
         return ch, int(n_consumed), meta, tasks
+
+    def tx_problems(self, ch) -> int:
+        """The built chunk's problems whose window lies in the transcript
+        text (two a transcript task)."""
+        return int(self._lib.thermite_chunk_tx_problems(ch))
+
+    def lift(self, ch, stage: int) -> Tuple[int, float]:
+        """-> (exonic alignments lifted, the seconds of their lift pass
+        on the engine's steady clock) in the chunk's last ``arbitrate``
+        (``stage`` 0: ``lift_tx_span`` and ``span_to_chr`` of the exonic
+        candidates that pass the score filters) or ``finalize`` (1:
+        ``lift_runs`` and ``chr_runs`` from the transcript payload)."""
+        s = ctypes.c_double()
+        n = self._lib.thermite_chunk_lift(ch, stage, ctypes.byref(s))
+        return int(n), s.value
 
     def arbitrate(
         self, ch, scores: np.ndarray, mi: np.ndarray, mj: np.ndarray

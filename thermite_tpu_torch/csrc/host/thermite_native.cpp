@@ -1778,6 +1778,13 @@ struct Chunk {
   std::vector<uint8_t> p_skip;     // per read: python splices this pair
   std::vector<int64_t> splice_pair;  // per skipped pair: pair index
   std::vector<int64_t> splice_off;   // per skipped pair: emit byte offset
+  // the transcriptome path: problems whose window lies in the transcript
+  // text (the build's), and the lifts of exonic alignments, [0] in
+  // arbitration and [1] in finalize: how many, and their steady-clock
+  // seconds summed over the call
+  int64_t tx_problems = 0;
+  int64_t lift_n[2] = {0, 0};
+  double lift_s[2] = {0.0, 0.0};
   int64_t n_problems() const { return (int64_t)meta.size() / 9; }
   int64_t n_tasks() const { return (int64_t)tasks.size() / T_NCOL; }
 };
@@ -1968,6 +1975,7 @@ struct ReadBuild {
   std::vector<int32_t> meta;   // (p, 9) local problems
   std::vector<int64_t> tasks;  // (t, T_NCOL) with local lp/rp, read_i=0
   int64_t rlen = 0, min_aln = 0;
+  int64_t tx_problems = 0;  // of meta: those in transcript windows
 };
 
 struct BuildScratch {
@@ -1981,6 +1989,7 @@ void build_one_read(const Engine& E, const uint8_t* read, int64_t rlen,
   out->meta.clear();
   out->tasks.clear();
   out->rlen = rlen;
+  out->tx_problems = 0;
   int64_t min_aln = std::max((int64_t)(E.pct * (double)rlen), E.min_score);
   out->min_aln = min_aln;
   int64_t band = std::max(rlen - min_aln, (int64_t)0);
@@ -2039,8 +2048,10 @@ void build_one_read(const Engine& E, const uint8_t* read, int64_t rlen,
       extend_seed_match(tseq, tlen, read, rlen, &sref, &sq, &slen);
       int64_t base = E.tx_off[tx];
       int64_t y_lo = std::max(sref - (rlen + band), (int64_t)0);
+      int64_t p0 = local.n_problems();
       extend_problems(&local, base + sref, slen, base + y_lo, base + tlen,
                       read_off, sq, rlen, band, xdrop, &lp, &rp);
+      out->tx_problems += local.n_problems() - p0;
       int64_t trow[T_NCOL] = {0, 1, sref, sq, slen, lp, rp, tlen, 0, tx};
       local.tasks.insert(local.tasks.end(), trow, trow + T_NCOL);
     }
@@ -2056,6 +2067,7 @@ void merge_read(Chunk* ch, int64_t ri, const ReadBuild& rb) {
   ch->read_minscore.push_back(rb.min_aln);
   ch->read_task_off.push_back(ch->n_tasks());
   ch->n_reads = ri + 1;
+  ch->tx_problems += rb.tx_problems;
   ch->meta.insert(ch->meta.end(), rb.meta.begin(), rb.meta.end());
   size_t t0 = ch->tasks.size();
   ch->tasks.insert(ch->tasks.end(), rb.tasks.begin(), rb.tasks.end());
@@ -2170,7 +2182,11 @@ const int64_t* thermite_chunk_tasks(void* ch) {
 }
 
 // Post-kernel arbitration (batch.py _arbitrate_chunk rules; reference
-// src/aligner.rs:143-190 + 263-313).
+// src/aligner.rs:143-190 + 263-313).  Three passes: each read's
+// candidates (one a seed group, the transcript's when it scores at
+// least the genome's), then the lifts of the exonic candidates that pass
+// the filters, timed as one interval (lift_n/lift_s[0]), then each
+// read's selection.
 void thermite_chunk_arbitrate(void* eh, void* chh, const int32_t* scores,
                               const int32_t* mi, const int32_t* mj) {
   auto& E = *static_cast<Engine*>(eh);
@@ -2180,9 +2196,11 @@ void thermite_chunk_arbitrate(void* eh, void* chh, const int32_t* scores,
 
   struct Cand {  // one chosen alignment per seed group
     int64_t task, type, gene, refid, score, ys, ye, xs, xe, rank, strand;
+    int64_t tx, tys, tye;  // exonic: the transcript span to lift
+    bool trailing_nonref;
   };
   std::vector<Cand> cands, kept, res;
-  std::vector<int64_t> gidx;
+  std::vector<int64_t> cand_off(1, 0), exonic, gidx;
 
   auto task = [&](int64_t t, int c) { return ch.tasks[t * T_NCOL + c]; };
 
@@ -2190,7 +2208,6 @@ void thermite_chunk_arbitrate(void* eh, void* chh, const int32_t* scores,
     int64_t t0 = ch.read_task_off[ri], t1 = ch.read_task_off[ri + 1];
     int64_t rlen = ch.read_len[ri];
     int64_t min_aln = ch.read_minscore[ri];
-    cands.clear();
 
     int64_t t = t0;
     while (t < t1) {
@@ -2232,14 +2249,14 @@ void thermite_chunk_arbitrate(void* eh, void* chh, const int32_t* scores,
       c.rank = E.ref_rank[hit_r];
       c.strand = E.ref_strand[hit_r];
       if (best >= 0 && best_score >= gx_score) {
-        int64_t tx = task(best, T_TXIDX);
-        int64_t lys, lye;
-        lift_tx_span(E, tx, tys, tye, txe < rlen, &lys, &lye);
         c.task = best;
         c.type = A_EXONIC;
         c.gene = -1;
         c.score = best_score;
-        span_to_chr(E, lys, lye, &c.ys, &c.ye);
+        c.tx = task(best, T_TXIDX);
+        c.tys = tys;
+        c.tye = tye;
+        c.trailing_nonref = txe < rlen;
         c.xs = txs;
         c.xe = txe;
       } else {
@@ -2255,14 +2272,32 @@ void thermite_chunk_arbitrate(void* eh, void* chh, const int32_t* scores,
 
       if (!E.intron_mode && c.type != A_EXONIC) continue;
       if (c.score < E.min_score || c.score < min_aln) continue;
+      if (c.type == A_EXONIC) exonic.push_back((int64_t)cands.size());
       cands.push_back(c);
     }
+    cand_off.push_back((int64_t)cands.size());
+  }
 
-    int64_t max_score = min_aln;
-    for (const auto& c : cands) max_score = std::max(max_score, c.score);
+  // the transcriptome lifts: transcript span -> chromosome span
+  auto lift_t0 = std::chrono::steady_clock::now();
+  for (int64_t k : exonic) {
+    Cand& c = cands[k];
+    int64_t lys, lye;
+    lift_tx_span(E, c.tx, c.tys, c.tye, c.trailing_nonref, &lys, &lye);
+    span_to_chr(E, lys, lye, &c.ys, &c.ye);
+  }
+  ch.lift_s[0] = std::chrono::duration<double>(
+      std::chrono::steady_clock::now() - lift_t0).count();
+  ch.lift_n[0] = (int64_t)exonic.size();
+
+  for (int64_t ri = 0; ri < ch.n_reads; ++ri) {
+    const Cand* c0 = cands.data() + cand_off[ri];
+    const Cand* c1 = cands.data() + cand_off[ri + 1];
+    int64_t max_score = ch.read_minscore[ri];
+    for (const Cand* c = c0; c < c1; ++c) max_score = std::max(max_score, c->score);
     kept.clear();
-    for (const auto& c : cands)
-      if (c.score >= max_score - E.mm_range) kept.push_back(c);
+    for (const Cand* c = c0; c < c1; ++c)
+      if (c->score >= max_score - E.mm_range) kept.push_back(*c);
 
     // filter_overlapping (driver.py / reference src/aligner.rs:317-349):
     // stable sort by (name, strand, ystart), then linear max-end dedupe
@@ -2442,9 +2477,14 @@ extern "C" {
 // every nontrivial problem; trivial problems have all-zero rows).
 // tb_meta: (n_rows, 9) int32 problem meta (for xlen).
 // Returns 0 on success, -(s+1) if the finalized span/score of selected
-// s disagrees with arbitration (a bug), and fills per-selected outputs
-// readable via getters.  Rows whose stream was flagged get
-// fallback=1 and empty runs (host recomputes those in Python).
+// s disagrees with arbitration (the first such s; a bug), and fills
+// per-selected outputs readable via getters.  Rows whose stream was
+// flagged get fallback=1 and empty runs (host recomputes those in
+// Python).  Two passes and an assembly: decode and stitch every selected
+// (the genome ones placed on their chromosome, the exonic ones kept as
+// their transcript payload), then lift the exonic ones through their
+// exons, timed as one interval (lift_n/lift_s[1]), then the runs in
+// selected order.
 int64_t thermite_chunk_finalize(void* eh, void* chh, const int32_t* tb_out,
                                 int64_t n_rows, int64_t pw,
                                 const int32_t* tb_meta) {
@@ -2459,7 +2499,17 @@ int64_t thermite_chunk_finalize(void* eh, void* chh, const int32_t* tb_out,
   ch.fallback.assign(S, 0);
 
   RunAln left, right, stitched, lifted;
-  int64_t rc = 0;
+  std::vector<int64_t> runs, run_lo(S, 0), run_hi(S, 0), exonic, ex_score;
+  int64_t bad = S;  // the first selected that disagrees with arbitration
+  auto place = [&](int64_t s, const RunAln& fin) {
+    const int64_t* sel = ch.selected.data() + s * S_NCOL;
+    if (fin.ystart != sel[S_YS] || fin.yend != sel[S_YE] ||
+        fin.score != sel[S_SCORE])
+      bad = std::min(bad, s);
+    run_lo[s] = (int64_t)runs.size();
+    runs.insert(runs.end(), fin.runs.begin(), fin.runs.end());
+    run_hi[s] = (int64_t)runs.size();
+  };
   for (int64_t s = 0; s < S; ++s) {
     const int64_t* sel = ch.selected.data() + s * S_NCOL;
     const int64_t* tk = ch.tasks.data() + sel[S_TASK] * T_NCOL;
@@ -2473,7 +2523,6 @@ int64_t thermite_chunk_finalize(void* eh, void* chh, const int32_t* tb_out,
                              &rj2);
     if (!okl || !okr) {
       ch.fallback[s] = 1;
-      ch.fin_off.push_back((int64_t)ch.fin_runs.size());
       ch.tx_off_runs.push_back((int64_t)ch.tx_runs.size());
       continue;
     }
@@ -2482,33 +2531,51 @@ int64_t thermite_chunk_finalize(void* eh, void* chh, const int32_t* tb_out,
     stitch_runs(left, right, tk[T_HITREF], tk[T_HITQ], tk[T_HITLEN],
                 E.match_score, &stitched);
 
-    RunAln* fin;
     if (sel[S_TYPE] == A_EXONIC) {
-      lift_runs(E, tk[T_TXIDX], stitched, &lifted);
-      chr_runs(E, &lifted);
-      fin = &lifted;
-      // tx_aln payload (stitched, tx coords)
+      // tx_aln payload (stitched, tx coords): also the lift's input
       ch.tx_runs.insert(ch.tx_runs.end(), stitched.runs.begin(),
                         stitched.runs.end());
       int64_t* tm = ch.tx_meta.data() + s * 5;
       tm[0] = stitched.ystart; tm[1] = stitched.yend;
       tm[2] = stitched.xstart; tm[3] = stitched.xend;
       tm[4] = tk[T_REFLEN];  // tx length
+      exonic.push_back(s);
+      ex_score.push_back(stitched.score);
     } else {
       stitched.ystart += tk[T_SEQSTART];
       stitched.yend += tk[T_SEQSTART];
       chr_runs(E, &stitched);
-      fin = &stitched;
+      place(s, stitched);
     }
-    if (rc == 0 && (fin->ystart != sel[S_YS] || fin->yend != sel[S_YE] ||
-                    fin->score != sel[S_SCORE])) {
-      rc = -(s + 1);  // span-only arbitration disagrees with traceback
-    }
-    ch.fin_runs.insert(ch.fin_runs.end(), fin->runs.begin(), fin->runs.end());
-    ch.fin_off.push_back((int64_t)ch.fin_runs.size());
     ch.tx_off_runs.push_back((int64_t)ch.tx_runs.size());
   }
-  return rc;
+
+  // the transcriptome lifts: transcript alignment -> chromosome, with N
+  // skips over the introns
+  auto lift_t0 = std::chrono::steady_clock::now();
+  for (size_t k = 0; k < exonic.size(); ++k) {
+    int64_t s = exonic[k];
+    const int64_t* tm = ch.tx_meta.data() + s * 5;
+    stitched.runs.assign(ch.tx_runs.begin() + ch.tx_off_runs[s],
+                         ch.tx_runs.begin() + ch.tx_off_runs[s + 1]);
+    stitched.ystart = tm[0]; stitched.yend = tm[1];
+    stitched.xstart = tm[2]; stitched.xend = tm[3];
+    stitched.score = ex_score[k];
+    const int64_t* sel = ch.selected.data() + s * S_NCOL;
+    lift_runs(E, ch.tasks[sel[S_TASK] * T_NCOL + T_TXIDX], stitched, &lifted);
+    chr_runs(E, &lifted);
+    place(s, lifted);
+  }
+  ch.lift_s[1] = std::chrono::duration<double>(
+      std::chrono::steady_clock::now() - lift_t0).count();
+  ch.lift_n[1] = (int64_t)exonic.size();
+
+  for (int64_t s = 0; s < S; ++s) {
+    ch.fin_runs.insert(ch.fin_runs.end(), runs.begin() + run_lo[s],
+                       runs.begin() + run_hi[s]);
+    ch.fin_off.push_back((int64_t)ch.fin_runs.size());
+  }
+  return bad < S ? -(bad + 1) : 0;
 }
 
 int64_t thermite_chunk_fin_nruns(void* ch) {
@@ -2534,6 +2601,16 @@ const int64_t* thermite_chunk_tx_meta(void* ch) {
 }
 const uint8_t* thermite_chunk_fallback(void* ch) {
   return static_cast<Chunk*>(ch)->fallback.data();
+}
+int64_t thermite_chunk_tx_problems(void* ch) {
+  return static_cast<Chunk*>(ch)->tx_problems;
+}
+// the exonic lifts of the last arbitration (stage 0) or finalize (1) of
+// the chunk: their count, and their seconds into *s
+int64_t thermite_chunk_lift(void* chh, int64_t stage, double* s) {
+  auto& ch = *static_cast<Chunk*>(chh);
+  *s = ch.lift_s[stage];
+  return ch.lift_n[stage];
 }
 
 int64_t thermite_chunk_n_selected(void* ch) {

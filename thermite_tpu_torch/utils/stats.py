@@ -12,11 +12,15 @@ under ``build/seed``; a top-level span's key is its bare name, and the
 process's CPU seconds over it (every thread's, so the C++ pools count)
 add to ``<name>/cpu``.  ``dsync(outer)`` records the device wait inside
 ``outer`` under ``<outer>/dsync``.  ``dsync`` and ``cpu`` are therefore
-no span's name.  While a ``torch.profiler`` records, each span is also a
-span of its trace, named by its path, with the number of the chunk it
-belongs to (``chunk``) as its argument; otherwise a span makes no torch
-call.  The recorder is the pipeline thread's: spans opened on other
-threads would interleave its path.
+no span's name.  ``timed(name, seconds)`` records under the open span
+seconds that the C++ engine timed itself (the exonic lifts:
+``arbitrate/lift``, ``finalize/lift``).  While a ``torch.profiler``
+records, each span is also a span of its trace, named by its path, with
+the number of the chunk it belongs to (``chunk``) as its argument (an
+engine-timed span is a mark at the end of its call, its microseconds the
+argument ``us``); otherwise a span makes no torch call.  The recorder is
+the pipeline thread's: spans opened on other threads would interleave
+its path.
 """
 
 from __future__ import annotations
@@ -38,13 +42,13 @@ def _profiler_on() -> bool:
     return prof is not None and prof._is_profiler_enabled
 
 
-def _profiler_span(path: str, chunk: int):
-    """The profiler's span ``path`` with ``chunk`` as its argument (in a
-    Chrome trace when the profiler records shapes, as
-    ``utils/profile.py::profiled`` does)."""
+def _profiler_span(path: str, **args: int):
+    """The profiler's span ``path`` with ``args`` (the chunk's number, ...)
+    as its arguments (in a Chrome trace when the profiler records shapes,
+    as ``utils/profile.py::profiled`` does)."""
     from torch._C._profiler import _RecordFunctionFast
 
-    return _RecordFunctionFast(path, (), {"chunk": chunk})
+    return _RecordFunctionFast(path, (), args)
 
 
 @dataclass
@@ -76,6 +80,15 @@ class PipelineStats:
     # thread pool (a write of two or more full blocks)
     bgzf_blocks: int = 0
     bgzf_pooled_blocks: int = 0
+    # the transcriptome path: extension problems in transcript windows;
+    # reads whose primary record is exonic, whose primary record skips
+    # an intron (an N op), and reads with only an unmapped record
+    # (single-end batches: a paired batch's mate rescue rewrites records
+    # after the engine, so it counts none of the three)
+    tx_problems: int = 0
+    exonic_reads: int = 0
+    spliced_reads: int = 0
+    unmapped_reads: int = 0
     stage_s: Dict[str, float] = field(default_factory=lambda: defaultdict(float))
     chunk: int = -1  # the chunk the spans opened now belong to
     _open: List[str] = field(default_factory=list, repr=False)  # open spans
@@ -92,7 +105,8 @@ class PipelineStats:
         top = not opened
         path = name if top else f"{opened[-1]}/{name}"
         opened.append(path)
-        rec = _profiler_span(path, self.chunk) if _profiler_on() else None
+        rec = _profiler_span(path, chunk=self.chunk) if _profiler_on() \
+            else None
         if rec is not None:
             rec.__enter__()
         cpu = time.process_time() if top else 0.0
@@ -107,6 +121,18 @@ class PipelineStats:
             if rec is not None:
                 rec.__exit__(None, None, None)
 
+    def timed(self, name: str, seconds: float) -> None:
+        """Add ``seconds`` timed elsewhere (inside a C++ call) to the
+        span ``name`` under the open span."""
+        if name in RESERVED or "/" in name or not self._open:
+            raise ValueError(f"{name!r} cannot name an inner span here")
+        path = f"{self._open[-1]}/{name}"
+        self.stage_s[path] += seconds
+        if _profiler_on():
+            with _profiler_span(path, chunk=self.chunk,
+                                us=round(seconds * 1e6)):
+                pass
+
     @contextmanager
     def dsync(self, outer: str):
         """Time a device sync point (np.asarray of an async result)
@@ -116,7 +142,8 @@ class PipelineStats:
         sync absorbs the kernel wall and the transfer, which would
         otherwise read as host arbitration time)."""
         key = outer + "/dsync"
-        rec = _profiler_span(key, self.chunk) if _profiler_on() else None
+        rec = _profiler_span(key, chunk=self.chunk) if _profiler_on() \
+            else None
         if rec is not None:
             rec.__enter__()
         t = time.perf_counter()
@@ -140,6 +167,8 @@ class PipelineStats:
         self.dp_cells_ref = self.cert_patches = 0
         self.emit_cpp_chunks = self.spliced_pairs = self.emit_py_chunks = 0
         self.bgzf_blocks = self.bgzf_pooled_blocks = 0
+        self.tx_problems = self.exonic_reads = 0
+        self.spliced_reads = self.unmapped_reads = 0
         self.stage_s.clear()
         self._t0 = time.perf_counter()
 
@@ -183,6 +212,7 @@ class PipelineStats:
             f"  reads\t{self.reads}",
             f"  chunks\t{self.chunks}",
             f"  extension problems\t{self.problems}",
+            f"  of them in transcript windows\t{self.tx_problems}",
             f"  tasks (seed x target)\t{self.tasks}",
             f"  traceback winners\t{self.winners}",
             f"  wall time\t{wall:.3f} s",
@@ -201,6 +231,11 @@ class PipelineStats:
             lines.append(
                 f"  stream-walk host fallbacks\t{self.stream_fallbacks}"
             )
+        if self.exonic_reads or self.spliced_reads or self.unmapped_reads:
+            lines.append(
+                f"  reads: primary exonic / spliced, unmapped"
+                f"\t{self.exonic_reads} / {self.spliced_reads},"
+                f" {self.unmapped_reads}")
         if self.bgzf_blocks:
             lines.append(f"  BGZF blocks\t{self.bgzf_blocks}"
                          f" ({self.bgzf_pooled_blocks} on the pool)")

@@ -7,7 +7,10 @@ the uncompressed BAM stream that every block covers, without
 decompressing.  ``want(lo, hi)`` asks for the blocks that overlap the
 uncompressed span [lo, hi) (a batch's records, asked for before the
 writer sees them); every other block is counted and dropped, so a run
-writes no file and keeps no stream.
+writes no file and keeps no stream.  ``unwant(lo, hi)`` gives a span up
+(a kept batch evicted by a later one) and drops the kept blocks that no
+other wanted span overlaps, so the sink holds the blocks of the wanted
+spans only.
 """
 
 from __future__ import annotations
@@ -28,11 +31,26 @@ class BlockSink:
     def want(self, lo: int, hi: int) -> None:
         self._want.append((lo, hi))
 
+    def unwant(self, lo: int, hi: int) -> None:
+        """Give up the wanted span [lo, hi): its blocks go, but for those
+        that another wanted span overlaps (a block shared with a
+        neighbour, or with the header)."""
+        self._want.remove((lo, hi))
+        self.kept = {k: v for k, v in self.kept.items()
+                     if self._wanted(v[0], v[1])}
+
+    def kept_bytes(self) -> int:
+        """Compressed bytes of the blocks the sink holds."""
+        return sum(len(b) for _, _, b in self.kept.values())
+
+    def _wanted(self, lo: int, hi: int) -> bool:
+        return any(a < hi and lo < b for a, b in self._want)
+
     def write(self, block: bytes) -> int:
         n = len(block)
         isize = struct.unpack_from("<I", block, n - 4)[0]
         lo, hi = self.uoff, self.uoff + isize
-        if any(a < hi and lo < b for a, b in self._want):
+        if self._wanted(lo, hi):
             self.kept[self.blocks] = (lo, hi, bytes(block))
         self.bytes += n
         self.blocks += 1

@@ -1,14 +1,18 @@
 """What decides ``correct``: the BAM records that the timed path wrote,
 read back from the blocks the sink kept, against the plain reference's.
 
-A run keeps the blocks of a few batches (``retained``: batch 0 and every
-eighth batch from an offset drawn from the seed), so the sample spreads
-over the whole window.  After the window has closed and the program's
-state is freed, ``CHECK_READS`` reads of those batches, drawn from the
-seed, are aligned by the reference from its own index of the FASTA and
-GTF; a read whose records differ from the program's by a byte counts as
-mismatched.  A batch whose stream does not parse into records of its
-reads, in order, counts every one of its reads as mismatched.
+A run keeps the blocks of ``RETAIN_BATCHES`` batches, however many the
+window runs: batch 0 and a reservoir (Algorithm R, ``Retention``) of the
+rest over batches 1, 2, ..., drawn from the seed, so the sample spreads
+over the whole window and the harness's share of the process's memory
+does not follow the program's rate.  The run keeps each batch's stream
+span only; its reads are made again from (seed, batch) once the window
+has closed and the program's state is freed.  Then ``CHECK_READS`` reads
+of those batches, drawn from the seed, are aligned by the reference from
+its own index of the FASTA and GTF; a read whose records differ from the
+program's by a byte counts as mismatched.  A batch whose stream does
+not parse into records of its reads, in order, counts every one of its
+reads as mismatched.
 
 The compared number is ``mismatched_reads``, with the limit 0: the
 program's records are the oracle's byte for byte (its bring-up held them
@@ -23,7 +27,7 @@ import copy
 import dataclasses
 import sys
 import time
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -33,13 +37,44 @@ from .reference.genome import Genome
 from .reference.txome import IntervalTable
 
 CHECK_READS = 2000
-RETAIN_EVERY = 8
+RETAIN_BATCHES = 8
 LIMIT_MISMATCHED = 0
 
 
-def retained(seed: int, batch: int) -> bool:
-    """Whether the run keeps batch ``batch``'s BAM blocks for the check."""
-    return batch == 0 or batch % RETAIN_EVERY == seed % RETAIN_EVERY
+class Retention:
+    """Which batches a run keeps for the check, decided batch by batch as
+    the window runs: batch 0, and a reservoir of ``RETAIN_BATCHES - 1``
+    places (Algorithm R) over batches 1, 2, ..., whose draws come from
+    ``default_rng([seed, 3])``.  Every batch after 0 is kept with the same
+    chance, whatever the window's length."""
+
+    def __init__(self, seed: int):
+        self._rng = np.random.default_rng([seed, 3])
+        self.kept: List[int] = []  # batch 0, then the reservoir's places
+        self.offered = 0
+
+    def offer(self, batch: int) -> Tuple[bool, Optional[int]]:
+        """Batch ``batch``, the next in order from 0: -> (whether it is
+        kept, the kept batch it evicts or None)."""
+        if batch != self.offered:
+            raise ValueError(f"batch {batch} offered after {self.offered - 1}")
+        self.offered += 1
+        if len(self.kept) < RETAIN_BATCHES:
+            self.kept.append(batch)
+            return True, None
+        j = 1 + int(self._rng.integers(batch))  # batch = batches seen after 0
+        if j >= RETAIN_BATCHES:
+            return False, None
+        evicted, self.kept[j] = self.kept[j], batch
+        return True, evicted
+
+
+def kept_batches(seed: int, batches: int) -> List[int]:
+    """The batches, in order, that a run of ``batches`` batches keeps."""
+    ret = Retention(seed)
+    for b in range(batches):
+        ret.offer(b)
+    return sorted(ret.kept)
 
 
 def header_len(data: bytes) -> int:
@@ -123,7 +158,8 @@ def judge(got: Dict[Tuple[int, int], bytes], reads: Dict[Tuple[int, int], tuple]
 def check_run(sink: BlockSink, head: int, kept: list, seed: int,
               genome: dict, cfg: dict) -> Dict[str, float]:
     """The check of one run: ``kept`` holds (batch, lo, hi, records) of the
-    batches whose blocks the sink kept, ``head`` the BAM header's length.
+    batches whose blocks the sink kept, in batch order, ``head`` the BAM
+    header's length.
     -> ``judge``'s counts, with the seconds of the reference's index."""
     try:
         if header_len(sink.span(0, head)) != head:

@@ -5,9 +5,10 @@ run's records are.
     python3 benchmark/control.py --workload <name> --batches <n> --seeds <s> ...
 
 For each seed it takes the reads that a run of ``n`` batches would check
-(the same kept batches and the same sample), aligns them with the
-reference and with the control, and prints the control's
-``mismatched_reads`` beside the limit: the control has to fail it.  It
+(the batches ``check.kept_batches`` replays the run's retention to, and
+the same sample), aligns them with the reference and with the control,
+and prints the control's ``mismatched_reads`` beside the limit: the
+control has to fail it.  It
 needs no card (the program does not run); on the chip's machine it runs
 at the cell's own size.  The benchmark's own runs never run it.
 """
@@ -35,7 +36,7 @@ def control_readings(root: str, workload: str, batches: int, seeds):
     samples = []
     for seed in seeds:
         kept = [(b, gen.make_batch(genome, traffic, seed, 0, b))
-                for b in range(batches) if check.retained(seed, b)]
+                for b in check.kept_batches(seed, batches)]
         picks = check.sample(seed, kept, check.CHECK_READS)
         samples.append({(kept[s][0], i): kept[s][1][i] for s, i in picks})
     ref_genome = Genome.from_files(genome["fasta"], genome["gtf"])

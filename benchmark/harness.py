@@ -15,6 +15,14 @@ records are made from (seed, batch) before the batch; the window's clock
 sums the time inside those two calls, and the window ends at the first
 batch boundary past ``seconds``.
 
+Between the two calls, outside the window's clock, ``check.Retention``
+decides whether the sink keeps the batch's blocks and which kept batch
+they evict.  The run holds (batch, lo, hi) of each kept batch and no
+reads: the check's reads are made again from (seed, batch) after the
+peak memory has been read and the program's state freed, so the
+harness's share of ``host_peak_gib`` is the blocks of
+``check.RETAIN_BATCHES`` batches at most, however fast the program runs.
+
 Set-up runs from the process's start through one warm-up batch, less
 ``ensure_caches``: the genome and the artifact that a checkout's first
 run builds once, as a user indexes once and aligns many times, are timed
@@ -232,18 +240,23 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
         raise CellError("the BAM header filled a whole BGZF block")
     sink.want(0, head)
     uoff = head
-    kept = []  # (batch, lo, hi, records)
+    retention = check.Retention(seed)
+    kept = {}  # batch -> (lo, hi): its records' span of the stream
     window_s = bam_s = 0.0
     reads = batch = 0
+    batch_s: List[float] = []  # each batch's seconds on the window's clock
 
     def one_batch(recs, stamp=None):
         nonlocal uoff, window_s, bam_s, reads, batch
         a = time.perf_counter()
         raw = align(aligner, recs)
         b = time.perf_counter()
-        if check.retained(seed, batch):
-            sink.want(uoff, uoff + len(raw))
-            kept.append((batch, uoff, uoff + len(raw), recs))
+        keep, evicted = retention.offer(batch)
+        if evicted is not None:
+            sink.unwant(*kept.pop(evicted))
+        if keep:
+            kept[batch] = (uoff, uoff + len(raw))
+            sink.want(*kept[batch])
         c = time.perf_counter()
         if stamp is None:
             writer.write_raw(raw)
@@ -253,6 +266,7 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
         d = time.perf_counter()
         uoff += len(raw)
         window_s += (b - a) + (d - c)
+        batch_s.append((b - a) + (d - c))
         bam_s += d - c
         reads += len(recs)
         batch += 1
@@ -262,6 +276,8 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
         one_batch(gen.make_batch(genome, traffic, seed, 0, batch))
     wall, cpu = time.perf_counter() - wall0, cpu_s() - cpu0
     host_peak = rss_gib() * 2**30
+    kept_at_peak = {"kept_batches": len(kept),
+                    "kept_block_bytes": sink.kept_bytes()}
     st = aligner.stats
     run = {
         "reads": reads, "window_s": window_s, "batches": batch,
@@ -305,7 +321,11 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    verdict = check.check_run(sink, head, kept, seed, genome, cfg)
+    t_remake = time.perf_counter()
+    checked = [(b, lo, hi, gen.make_batch(genome, traffic, seed, 0, b))
+               for b, (lo, hi) in sorted(kept.items())]
+    remake_s = time.perf_counter() - t_remake
+    verdict = check.check_run(sink, head, checked, seed, genome, cfg)
     bad = verdict["mismatched_reads"]
     correct = bool(verdict["checked_reads"] > 0
                    and bad <= check.LIMIT_MISMATCHED)
@@ -340,7 +360,8 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
                                          "limit": check.LIMIT_MISMATCHED}}
     info = {"batches": batch, "window_s": window_s, "sink_bytes": sink.bytes,
             "window_wall_s": wall, "window_cpu_s": cpu,
-            "setup": phases,
+            "batch_s": [round(x, 4) for x in batch_s],
+            "setup": phases, **kept_at_peak, "remake_s": remake_s,
             "checked_reads": verdict["checked_reads"],
             **{k: v for k, v in verdict.items() if k.endswith("_s")}}
     print("run: " + json.dumps(info), file=sys.stderr)

@@ -56,8 +56,9 @@ def add_tiny_cell(root: str, stride: int = 1,
                             "reduced": [], "why": "tests"})
     spec["workloads"].append({"name": "tiny.se90", "config": "tiny",
                               "traffic": "tiny", "chips": 1, "why": "tests"})
-    for m in spec["per_layer"]:
-        m["workloads"].append("tiny.se90")
+    for m in spec["per_layer"] + spec["end_to_end"]:
+        if "workloads" in m:
+            m["workloads"].append("tiny.se90")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
     return "tiny.se90"
